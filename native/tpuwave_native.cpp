@@ -2,13 +2,13 @@
 //
 // The reference offloads its runtime (mesh build, VTU output) to native
 // deal.II/Trilinos code; this library is the tpuwave equivalent for the
-// host-side parts that stay off the TPU: raw-appended binary VTU writing
+// host-side parts that stay off the accelerator: raw-appended binary VTU writing
 // (DataOut::write_vtu_with_pvtu_record parity), legacy VTK mesh snapshots
 // (GridOut::write_vtk parity), and O(N) structured-mesh connectivity
 // builders. Exposed as a C ABI for ctypes; Python falls back to numpy
 // implementations when the shared library is unavailable.
 //
-// Build: make -C native   (produces libtpuwave_native.so)
+// Build: make -C native   (produces libwave_native.so)
 
 #include <cstdint>
 #include <cstdio>

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip bench for DRIVEN (time-dependent Dirichlet) cases at 4096^2.
+"""GPU bench for DRIVEN (time-dependent Dirichlet) cases at 4096^2.
 
 Round-2 verdict: the 9372x headline applied only to free vibration; the
 driven presets could run only at gather-path speed. Round 3 put driven
@@ -12,27 +12,24 @@ oscillating strip on one edge, reference parameters/sine-membrane.json):
   * implicit CN via the product fast engine (FastThetaSolver, MG-PCG)
     with driven g — the --engine fast CLI path at scale
 
-Usage (chip): python -u scripts/bench_driven.py [--nel 4096 --steps 64]
-Copy the rows into RESULTS.md.
+Usage (GPU): python -u scripts/bench_driven.py [--nel 4096 --steps 64]
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import time
 from pathlib import Path
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      str(Path(__file__).resolve().parent.parent
-                          / ".jax_cache"))
 
 import jax
 import jax.numpy as jnp
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
+from tpuwave.config import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def u0_fn(xs, ys):
@@ -53,16 +50,15 @@ def f_fn(xs, ys, t):
 
 
 def sync(x):
-    return float(jnp.sum(jnp.asarray(x, jnp.float32)))
+    return jax.block_until_ready(x)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--nel", type=int, default=4096)
     ap.add_argument("--steps", type=int, default=64)
-    _legs = ["driven", "driven-pallas", "driven-multistep", "forced",
-             "implicit", "implicit-2term", "implicit-cheby",
-             "p2-implicit", "p2-2term"]
+    _legs = ["driven", "forced", "implicit", "implicit-2term",
+             "implicit-cheby", "p2-implicit", "p2-2term"]
     ap.add_argument("--skip", nargs="*",
                     default=["p2-implicit", "p2-2term"], choices=_legs)
     ap.add_argument("--only", nargs="*", default=None, choices=_legs)
@@ -100,22 +96,6 @@ def main():
         lf = s.initial_leapfrog_state(u0_fn, g_fn=g_fn)
         bench("explicit driven g(t)          ",
               lambda st: s.run_leapfrog_driven(st, times, g_fn), lf)
-
-    if "driven-pallas" not in args.skip:
-        lf = s.initial_leapfrog_state(u0_fn, g_fn=g_fn)
-        bench("explicit driven g(t), pallas  ",
-              lambda st: s.run_leapfrog_driven_pallas(st, times, g_fn), lf)
-
-    if "driven-multistep" not in args.skip:
-        # round-4: per-substep boundary injection INSIDE the k-step
-        # kernel (leapfrog_multistep_driven_pallas) — temporal blocking
-        # for driven problems
-        for k, br in ((8, 128), (16, 128), (32, 128)):
-            lf = s.initial_leapfrog_state(u0_fn, g_fn=g_fn)
-            bench(f"explicit driven, k={k:2d} blocked ",
-                  lambda st, k=k, br=br: s.run_leapfrog_driven_multistep(
-                      st, times, g_fn, steps_per_call=k, block_rows=br),
-                  lf)
 
     if "forced" not in args.skip:
         lf = s.initial_leapfrog_state(u0_fn, f_fn=f_fn, g_fn=g_fn)
@@ -221,9 +201,8 @@ def main():
 
     if "p2-implicit" not in args.skip:
         # the R=2 product engine at the SAME geometry (67.1M DoF at
-        # --nel 4096): driven implicit Newmark-AA through the fused
-        # canvas solves — the CLI chip row of RESULTS.md round 4.
-        # Default-skipped (slow leg); enable with --only p2-implicit.
+        # --nel 4096): driven implicit Newmark-AA through the canvas
+        # solves. Default-skipped (slow leg); enable with --only p2-implicit.
         from tpuwave.models.fast_engine import make_fast_solver
         from tpuwave.utils.params import load_params
         from tpuwave import config

@@ -12,22 +12,21 @@ For each step count it reports the wall time of one jitted
 and — the headline — the step count where remat runs out of HBM while
 reversal keeps going.
 
-Run on the TPU for real numbers; ``--nel 64 --steps 20 40`` works as an
-off-TPU smoke.
+Run on a GPU for real numbers; ``--nel 64 --steps 20 40`` works as a CPU
+smoke.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(__file__), os.pardir,
-                                   ".jax_cache"))
+from tpuwave.config import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def parse_args():
@@ -40,22 +39,15 @@ def parse_args():
     p.add_argument("--dtype", choices=["f32", "f64"], default="f32")
     p.add_argument("--modes", nargs="+",
                    default=["remat", "reversal"],
-                   choices=["remat", "reversal", "pallas"],
-                   help="adjoint/engine variants: 'remat'/'reversal' use "
-                        "the XLA stencil-plane engine; 'pallas' is the "
-                        "fused-kernel engine with the reversal adjoint")
-    p.add_argument("--block-rows", type=int, default=128)
-    p.add_argument("--steps-per-call", type=int, default=8,
-                   help="temporal blocking for the pallas engine: fused "
-                        "steps per kernel pass, applied to BOTH the "
-                        "forward and the backward pass (1 disables)")
+                   choices=["remat", "reversal"],
+                   help="adjoint modes, both on the stencil-plane engine")
     p.add_argument("--forward-only", action="store_true",
                    help="time p.simulate instead of value_and_grad")
     p.add_argument("--sponge", type=float, default=0.0,
                    help="absorbing-layer width (physical units; 0 = hard "
                         "walls). With 'reversal' this exercises the "
                         "boundary-saving path (damped strip stored per "
-                        "step); 'pallas' does not support it")
+                        "step)")
     p.add_argument("--boundary-save", choices=("strip", "ring"),
                    default="strip",
                    help="reversal+sponge storage: every damped vertex "
@@ -83,23 +75,16 @@ def main():
     for n_steps in args.steps:
         grads = {}
         for mode in args.modes:
-            engine = "pallas" if mode == "pallas" else "stencil"
-            adjoint = "remat" if mode == "remat" else "reversal"
             p = FwiProblem((args.nel, args.nel), geom, args.dt, n_steps,
                            source=(0.25, 0.5), receivers=recs,
-                           engine=engine, adjoint=adjoint,
+                           engine="stencil", adjoint=mode,
                            sponge_width=args.sponge,
-                           boundary_save=args.boundary_save,
-                           pallas_block_rows=args.block_rows,
-                           pallas_steps_per_call=args.steps_per_call)
+                           boundary_save=args.boundary_save)
             if args.sponge > 0.0 and p._sponge_rects is not None:
                 frac = p._sponge_saved_size / p.n_vertices
                 print(f"  boundary save ({p.boundary_save}): "
                       f"{p._sponge_saved_size} vertices "
                       f"({100 * frac:.1f}% of the grid) saved per step")
-            if engine == "pallas":
-                print(f"  pallas layout: {p._pallas_layout['k']} fused "
-                      f"steps/pass, block_rows={p._pallas_layout['br']}")
             cent = p.mesh.vertex_coords[np.asarray(p.mesh.cells)].mean(1)
             inside = np.sum((cent - [0.6, 0.5]) ** 2, 1) < 0.18 ** 2
             c2_true = jnp.asarray(np.where(inside, 0.65, 1.0), p.dtype)

@@ -6,22 +6,21 @@ exists for CFL-breaking dt where Jacobi-CG iteration counts blow up with
 O(dt/h). Compares precond=jacobi vs precond=mg on the same trajectory
 (implicit Newmark-AA by default) and reports ms/step + end-state diff.
 
-Run on the TPU for real numbers; off-TPU pass --interpret --block-rows 16
-with small --nel for a correctness smoke.
+Run on a GPU for real numbers; a small --nel on the CPU is a correctness
+smoke.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(__file__), os.pardir,
-                                   ".jax_cache"))
+from tpuwave.config import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax
 import jax.numpy as jnp
@@ -37,9 +36,6 @@ def parse_args():
     p.add_argument("--scheme", default="newmark",
                    choices=["newmark", "theta"])
     p.add_argument("--preconds", nargs="+", default=["mg", "jacobi"])
-    p.add_argument("--no-pallas", action="store_true")
-    p.add_argument("--interpret", action="store_true")
-    p.add_argument("--block-rows", type=int, default=64)
     p.add_argument("--mg-pre-degree", type=int, default=2)
     p.add_argument("--mg-smooth-range", type=float, default=8.0)
     return p.parse_args()
@@ -59,9 +55,6 @@ def main():
     for precond in args.preconds:
         s = P2CanvasSolver((args.nel, args.nel), geom, args.dt,
                            scheme=args.scheme, precond=precond,
-                           use_pallas=not args.no_pallas,
-                           pallas_block_rows=args.block_rows,
-                           pallas_interpret=args.interpret,
                            mg_pre_degree=args.mg_pre_degree,
                            mg_smooth_range=args.mg_smooth_range)
         st = s.initial_state(u0)

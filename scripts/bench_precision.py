@@ -1,41 +1,31 @@
 #!/usr/bin/env python3
 """f64 and compensated-f32 explicit throughput at the 4096^2 bench scale.
 
-Round-2 verdict weak item: the f32 headline (bench.py) had no committed
-f64 / compensated-f32 companion at the north-star size (f64 data existed
-only at 640^2). This script measures, at the SAME 4096^2 standing-mode
-leapfrog configuration:
+Measures, at the SAME 4096^2 standing-mode leapfrog configuration:
 
-  * f32 XLA roll scan          (the non-Pallas baseline)
+  * f32 XLA roll scan
   * compensated f32 (TwoSum carries, ~f48 effective; models/fast.py
     CompensatedState — 2 stencil applies + TwoSum bookkeeping per step)
-  * f64 XLA roll scan          (emulated f64 on TPU)
+  * f64 XLA roll scan
 
-The Pallas kernels are f32-only (Mosaic has no f64), so all three run the
-XLA stencil path for an apples-to-apples comparison; bench.py's Pallas
-numbers quantify the extra kernel speedup available to f32.
-
-Usage (chip): python -u scripts/bench_precision.py [--nel 4096 --steps 64]
-Copy the table into RESULTS.md.
+Usage (GPU): python -u scripts/bench_precision.py [--nel 4096 --steps 64]
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import time
 from pathlib import Path
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      str(Path(__file__).resolve().parent.parent
-                          / ".jax_cache"))
 
 import jax
 import jax.numpy as jnp
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
+from tpuwave.config import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def u0(xs, ys):
@@ -43,7 +33,7 @@ def u0(xs, ys):
 
 
 def sync(x):
-    return float(jnp.sum(jnp.asarray(x, jnp.float32)))
+    return jax.block_until_ready(x)
 
 
 def time_path(label, run, state, n_dofs, steps, repeats=3):

@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # Full convergence sweep (the batch-job equivalent of the reference's
 # scripts/convergence_all.pbs: same 490-run grid, results staged into a
-# scratch dir and archived). Run on a TPU host; add --f32 for speed or
+# scratch dir and archived). Run on a GPU host; add --f32 for speed or
 # leave f64 for parity-grade errors.
 set -euo pipefail
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env bash
 # Strong-scaling sweep over device counts (equivalent of the reference's
-# scripts/scalability_all.pbs p in {1,2,4,8,16,32} driver). On a multi-chip
-# TPU host pass --devices 1 2 4 8; without chips use the virtual CPU mesh.
+# scripts/scalability_all.pbs p in {1,2,4,8,16,32} driver). On a multi-GPU
+# host pass --devices 1 2 4 8; without GPUs use the virtual CPU mesh.
 set -euo pipefail
 
 REPO="$(cd "$(dirname "$0")/../.." && pwd)"

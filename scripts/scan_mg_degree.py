@@ -1,20 +1,19 @@
 #!/usr/bin/env python3
 """Scan MG smoother parameters (pre_degree x smooth_range) on the P1
-Pallas MG-PCG fast path — per-step time at CFL-breaking dt.
+MG-PCG fast path (run_implicit_mg) — per-step time at CFL-breaking dt.
 
 Usage: python -u scripts/scan_mg_degree.py [nel] [dt] [scheme-val] \
            [degs (comma-sep)] [ranges (comma-sep)]
 """
 
-import os
 import sys
 import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(__file__), os.pardir,
-                                   ".jax_cache"))
+from tpuwave.config import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import jax
 import jax.numpy as jnp
@@ -43,7 +42,7 @@ st = s.initial_state(
 
 for pre_degree in DEGS:
     for smooth_range in RANGES:
-        run = lambda st_, n: s.run_implicit_mg_pallas(
+        run = lambda st_, n: s.run_implicit_mg(
             st_, n, pre_degree=pre_degree, smooth_range=smooth_range)
         t0 = time.perf_counter()
         out = run(st, STEPS)

@@ -1,7 +1,7 @@
 """Determinism: identical runs produce bitwise-identical trajectories.
 
 The reference relies on MPI collective ordering for reproducibility
-(SURVEY.md section 5 'race detection: none'); on TPU the analogue is that
+(SURVEY.md section 5 'race detection: none'); here the analogue is that
 segment_sum scatter-adds and stencil reductions are deterministic — two
 runs of the same program must agree bit-for-bit, including under 8-way
 sharding."""

@@ -268,10 +268,10 @@ def test_cli_engine_auto_routes_and_falls_back(tmp_path, capsys):
                 ("--engine", "fast")) == 1
 
 
-def test_leapfrog_driven_pallas_matches_xla():
-    """run_leapfrog_driven_pallas (fused kernel + O(perimeter) boundary
-    overlay, + consistent forcing pass) reproduces the XLA driven
-    leapfrog exactly in f64 interpret mode."""
+def test_leapfrog_driven_scan_matches_steps():
+    """run_leapfrog_driven (the whole loop as one jitted scan) reproduces
+    the per-step driven leapfrog exactly in f64, with and without the
+    consistent forcing pass."""
     from tpuwave.models.fast import FastWaveSolver
 
     def g_fn(x, y, t):
@@ -282,28 +282,17 @@ def test_leapfrog_driven_pallas_matches_xla():
 
     fs = FastWaveSolver((24, 20), ((0.0, 0.0), (1.0, 1.0)), 5e-3,
                         beta=0.0, dtype=jnp.float64)
-    st = fs.initial_leapfrog_state(
-        lambda xs, ys: jnp.sin(jnp.pi * xs) * jnp.sin(jnp.pi * ys),
-        f_fn=f_fn, g_fn=g_fn)
     times = 5e-3 * (1.0 + np.arange(12))
-    want = st
-    for t in times:
-        want = fs.leapfrog_step_driven(want, float(t), g_fn, f_fn)
-    got = fs.run_leapfrog_driven_pallas(st, times, g_fn, f_fn,
-                                        block_rows=8, interpret=True)
-    nu = float(jnp.linalg.norm(want.u))
-    assert float(jnp.linalg.norm(got.u - want.u)) < 1e-13 * nu
-    # and without forcing
-    st2 = fs.initial_leapfrog_state(
-        lambda xs, ys: jnp.sin(jnp.pi * xs) * jnp.sin(jnp.pi * ys),
-        g_fn=g_fn)
-    want2 = st2
-    for t in times:
-        want2 = fs.leapfrog_step_driven(want2, float(t), g_fn)
-    got2 = fs.run_leapfrog_driven_pallas(st2, times, g_fn,
-                                         block_rows=8, interpret=True)
-    assert float(jnp.linalg.norm(got2.u - want2.u)) \
-        < 1e-13 * float(jnp.linalg.norm(want2.u))
+    for forcing in (f_fn, None):
+        st = fs.initial_leapfrog_state(
+            lambda xs, ys: jnp.sin(jnp.pi * xs) * jnp.sin(jnp.pi * ys),
+            f_fn=forcing, g_fn=g_fn)
+        want = st
+        for t in times:
+            want = fs.leapfrog_step_driven(want, float(t), g_fn, forcing)
+        got = fs.run_leapfrog_driven(st, times, g_fn, forcing)
+        nu = float(jnp.linalg.norm(want.u))
+        assert float(jnp.linalg.norm(got.u - want.u)) < 1e-13 * nu
 
 
 def test_grid_diagnostics_matches_parity():
@@ -356,22 +345,27 @@ def test_params_built_engine_runs_and_matches(tmp_path):
 @pytest.mark.parametrize("fam,prec", [("theta", "jacobi"),
                                       ("newmark", "mg"),
                                       ("theta", "chebyshev")])
-def test_pallas_solve_engine_matches_xla(fam, prec):
-    """The fused-Pallas solve path of the product engine (use_pallas)
-    reproduces the XLA solve path on a driven + forced problem
-    (interpret mode on CPU; Mosaic-compiled certification is the chip
-    gate's mg/cg checks)."""
+def test_product_engine_solve_matches_parity(fam, prec):
+    """The Params-built P1 product engine's solve path (constrained grid
+    stencils, boundary lift, per-step system preconditioner) against the
+    f64 parity engine running the same preconditioner on a driven +
+    forced problem: identical iteration counts where the preconditioners
+    are the same operator (jacobi); the solve-tolerance class where they
+    are built differently (the grid mg hierarchy, analytic vs estimated
+    chebyshev bounds)."""
     from tpuwave.models.fast_engine import make_fast_solver
     p = load_params(driven_case(Nel="24", T="0.04"))
-    s_x = make_fast_solver(p, fam, precond=prec)
-    s_p = make_fast_solver(p, fam, precond=prec, use_pallas=True,
-                           pallas_block_rows=8, pallas_interpret=True)
-    assert s_p._use_pallas
-    st_x, info_x = _run(s_x, p)
-    st_p, info_p = _run(s_p, p)
-    nu = float(jnp.linalg.norm(st_x.u))
-    assert float(jnp.linalg.norm(st_x.u - st_p.u)) < 1e-11 * nu
-    assert int(info_x["iterations_1"]) == int(info_p["iterations_1"])
+    d = Discretization(p)
+    fast = make_fast_solver(p, fam, precond=prec)
+    ref = (ThetaSolver if fam == "theta" else NewmarkSolver)(d, precond=prec)
+    st_f, info_f = _run(fast, p)
+    st_r, info_r = _run(ref, p)
+    nu = float(jnp.linalg.norm(st_r.u))
+    if prec == "jacobi":
+        assert float(jnp.linalg.norm(st_r.u - st_f.u)) < 1e-10 * nu
+        assert int(info_r["iterations_1"]) == int(info_f["iterations_1"])
+    else:
+        assert float(jnp.linalg.norm(st_r.u - st_f.u)) < 1e-5 * nu
 
 
 @pytest.mark.parametrize("preset", ["sine-membrane", "oscillating-boundary",
@@ -526,18 +520,17 @@ def test_cli_shard_rows_csv_parity(tmp_path, capsys):
         assert fa == pa, csv
 
 
-@pytest.mark.parametrize("k,br", [(4, 8), (8, 8), (16, 32)])
-def test_leapfrog_driven_multistep_matches_xla(k, br):
-    """Round-4 contract: temporally-blocked DRIVEN leapfrog — per-substep
-    boundary values injected INSIDE the k-step kernel by global
-    coordinates (the FWI kernels' injection mechanism) — reproduces the
-    XLA driven step exactly in f64 interpret mode at k = 4/8/16."""
+@pytest.mark.parametrize("nel", [(24, 70), (33, 17), (8, 8)])
+def test_leapfrog_driven_scan_matches_steps_on_grid_shapes(nel):
+    """The driven leapfrog scan on non-square, odd and tiny grids (the
+    stencil's roll wrap meets the pinned boundary rows on every edge)
+    reproduces the per-step driven recurrence exactly in f64."""
     from tpuwave.models.fast import FastWaveSolver
 
     def g_fn(x, y, t):
         return 0.1 * jnp.sin(3.0 * t) * (1.0 + x * y)
 
-    fs = FastWaveSolver((24, 70), ((0.0, 0.0), (1.0, 1.0)), 5e-3,
+    fs = FastWaveSolver(nel, ((0.0, 0.0), (1.0, 1.0)), 5e-3,
                         beta=0.0, dtype=jnp.float64)
     st = fs.initial_leapfrog_state(
         lambda xs, ys: jnp.sin(jnp.pi * xs) * jnp.sin(jnp.pi * ys),
@@ -546,9 +539,58 @@ def test_leapfrog_driven_multistep_matches_xla(k, br):
     want = st
     for t in times:
         want = fs.leapfrog_step_driven(want, float(t), g_fn)
-    got = fs.run_leapfrog_driven_multistep(st, times, g_fn,
-                                           steps_per_call=k,
-                                           block_rows=br, interpret=True)
+    got = fs.run_leapfrog_driven(st, times, g_fn)
     nu = float(jnp.linalg.norm(want.u))
     assert float(jnp.linalg.norm(got.u - want.u)) < 1e-13 * nu
     assert float(jnp.linalg.norm(got.u_prev - want.u_prev)) < 1e-13 * nu
+
+
+@pytest.mark.parametrize("r", ["1", "2"])
+def test_engine_choice_on_gpu_is_plain_xla(monkeypatch, r):
+    """With the first device reported as a GPU, the f32 constant-c
+    product engines (the configuration that once auto-selected
+    hand-written fused kernels off the CPU) build and trace a step of
+    plain XLA operations only."""
+    import jax
+    from tpuwave import config
+    from tpuwave.models.fast_engine import make_fast_solver
+
+    class _Gpu:
+        platform, device_kind, id = "gpu", "NVIDIA H100 80GB HBM3", 0
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [_Gpu()])
+    config.use_x64(False)
+    try:
+        p = load_params(driven_case(Nel="16", R=r, T="0.02",
+                                    Beta="0.25"))
+        s = make_fast_solver(p, "newmark", precond="mg")
+        assert s.dtype == jnp.float32
+        st = s.initial_state()
+        jaxpr = str(jax.make_jaxpr(s._step_impl)(st, 0.01))
+        assert "pallas" not in jaxpr and "custom_call" not in jaxpr
+        assert not any("pallas" in k for k in vars(s))
+    finally:
+        config.use_x64(True)
+
+
+@pytest.mark.parametrize("r", ["1", "2"])
+def test_f32_energy_keeps_precision_on_fine_meshes(r):
+    """The O(grid) diagnostics evaluate the stiffness energy in gradient
+    difference form, so an f32 state's energy matches the f64 energy of
+    the same values to f32 rounding — even where u^T K u is tiny next to
+    |u|^2 (a direct w^T K w sum in f32 loses it to cancellation)."""
+    from tpuwave.models.grid_diag import GridDiagnostics
+    from tpuwave.models.p2_diag import P2GridDiagnostics
+    case = standing_mode(Nel="192", R=r)
+    p = load_params(case)
+    cls = GridDiagnostics if r == "1" else P2GridDiagnostics
+    d32, d64 = cls(p, dtype=jnp.float32), cls(p, dtype=jnp.float64)
+    x = d64.interpolate(load_params(standing_mode(
+        U0={"Function expression": "1 + 0.01*sin(pi*x)*sin(pi*y)",
+            "Variable names": "x, y"})).u0)
+    u32 = jnp.asarray(x, jnp.float32)
+    v32 = jnp.zeros_like(u32)
+    e32 = float(d32.energy(u32, v32))
+    e64 = float(d64.energy(u32.astype(jnp.float64),
+                           v32.astype(jnp.float64)))
+    assert abs(e32 - e64) < 1e-4 * abs(e64)

@@ -387,24 +387,28 @@ def test_p2_newmark_nonzero_boundary_data_decays_like_parity():
 @pytest.mark.parametrize("fam,prec", [("theta", "jacobi"),
                                       ("newmark", "mg"),
                                       ("theta", "chebyshev")])
-def test_p2_canvas_solve_engine_matches_flat(fam, prec):
-    """The fused canvas solve path of the P2 product engine (use_pallas:
-    CG matvecs + mg smoothing through the Mosaic block-stencil kernel,
-    XLA lift) reproduces the flat solve path with identical iteration
-    counts on a driven + forced problem (interpret mode on CPU;
-    Mosaic-compiled certification is the chip gate's p2 check)."""
+def test_p2_canvas_solve_engine_matches_parity(fam, prec):
+    """The canvas solve path of the Params-built P2 product engine (CG
+    matvecs, boundary lift and mg smoothing on the (4, Hc, Wc) canvases)
+    against the f64 parity engine running the same preconditioner on a
+    driven + forced problem: identical iteration counts where the two
+    preconditioners are the same operator (jacobi, mg); the
+    solve-tolerance class for chebyshev (analytic Gershgorin vs power
+    iteration lambda bounds)."""
     case = driven_case(**{"Nel": "12,21", "Beta": "0.25", "T": "0.03"})
     p = load_params(case)
-    s_x = make_fast_solver(p, fam, precond=prec)
-    s_c = make_fast_solver(p, fam, precond=prec, use_pallas=True,
-                           pallas_block_rows=8, pallas_interpret=True)
-    assert s_c._use_pallas
-    st_x, info_x = _run(s_x, p)
-    st_c, info_c = _run(s_c, p)
-    ux, uc = s_x.to_flat(st_x.u), s_c.to_flat(st_c.u)
-    nu = float(jnp.linalg.norm(ux))
-    assert float(jnp.linalg.norm(ux - uc)) < 1e-11 * nu
-    assert int(info_x["iterations_1"]) == int(info_c["iterations_1"])
+    d = Discretization(p)
+    fast = make_fast_solver(p, fam, precond=prec)
+    ref = (ThetaSolver if fam == "theta" else NewmarkSolver)(d, precond=prec)
+    st_f, info_f = _run(fast, p)
+    st_r, info_r = _run(ref, p)
+    uf = fast.to_flat(st_f.u)
+    nu = float(jnp.linalg.norm(st_r.u))
+    if prec == "chebyshev":
+        assert float(jnp.linalg.norm(st_r.u - uf)) < 1e-5 * nu
+    else:
+        assert float(jnp.linalg.norm(st_r.u - uf)) < 1e-10 * nu
+        assert int(info_r["iterations_1"]) == int(info_f["iterations_1"])
 
 
 # ---------------------------------------------------------------------------

@@ -105,23 +105,27 @@ def test_p2_canvas_solver_sharded_matches_single():
                                rtol=1e-10, atol=1e-12)
 
 
-def test_p2_canvas_pallas_matches_xla():
-    """Fused P2 constrained-apply kernel == XLA canvas path (whole steps;
-    f64 so only implementation differences — not CG rounding — would show)."""
+def test_p2_canvas_padded_matches_unpadded():
+    """Canvas padding is transparent: a canvas padded to a row multiple
+    of 8 (the sharded layout) reproduces the unpadded canvas on a
+    non-square grid (whole steps; f64, so only a layout bug — not CG
+    rounding — would show)."""
     from tpuwave.models.fast_p2 import P2CanvasSolver
-    kw = dict(dtype=jnp.float64, row_multiple=8)
-    a = P2CanvasSolver((12, 28), ((0.0, 0.0), (1.0, 1.0)), 0.005, **kw)
+    a = P2CanvasSolver((12, 28), ((0.0, 0.0), (1.0, 1.0)), 0.005,
+                       dtype=jnp.float64)
     b = P2CanvasSolver((12, 28), ((0.0, 0.0), (1.0, 1.0)), 0.005,
-                       use_pallas=True, pallas_block_rows=8,
-                       pallas_interpret=True, **kw)
+                       dtype=jnp.float64, row_multiple=8)
+    assert b.cshape[0] % 8 == 0 and b.cshape != a.cshape
     sa = a.initial_state(u0)
     sb = b.initial_state(u0)
-    np.testing.assert_allclose(np.asarray(sb.a), np.asarray(sa.a),
+    np.testing.assert_allclose(np.asarray(b.to_flat(sb.a)),
+                               np.asarray(a.to_flat(sa.a)),
                                rtol=1e-10, atol=1e-12)
     for _ in range(3):
         sa = a.step(sa)
         sb = b.step(sb)
-    np.testing.assert_allclose(np.asarray(sb.u), np.asarray(sa.u),
+    np.testing.assert_allclose(np.asarray(b.to_flat(sb.u)),
+                               np.asarray(a.to_flat(sa.u)),
                                rtol=1e-10, atol=1e-13)
 
 

@@ -60,19 +60,16 @@ def test_multistep_halo_matches_single_device(k):
 
 
 @pytest.mark.parametrize("k", [4, 8])
-def test_multistep_halo_pallas_matches_single_device(k):
-    """engine='pallas': ppermute k-row exchange + the FUSED multistep
-    kernel per shard (global-row-offset Dirichlet mask) reproduces the
-    single-device trajectory exactly (f64, interpret mode)."""
+def test_multistep_halo_wide_matches_single_device(k):
+    """Wide halos (k = 4, 8 rows exchanged once per k local steps; 16
+    rows per shard) reproduce the single-device trajectory exactly
+    (f64): the shrinking-validity bookkeeping holds at depth."""
     from tpuwave.parallel.halo import make_multistep_halo_leapfrog
     mesh = device_mesh(4)
-    # 64 rows over 4 shards -> 16 rows/shard; 16 + 2k splits into >= 2
-    # blocks of 8 for both k values
     solver = FastWaveSolver((30, 63), ((0.0, 0.0), (1.0, 1.0)), 0.004,
                             beta=0.0, dtype=jnp.float64)
-    advance, sharding = make_multistep_halo_leapfrog(
-        mesh, solver, k_steps=k, engine="pallas", block_rows=8,
-        interpret=True)
+    advance, sharding = make_multistep_halo_leapfrog(mesh, solver,
+                                                     k_steps=k)
 
     lf = solver.initial_leapfrog_state(u0)
     want = lf
@@ -90,15 +87,14 @@ def test_multistep_halo_pallas_matches_single_device(k):
                                rtol=1e-12, atol=1e-13)
 
 
-def test_multistep_halo_pallas_rejects_bad_blocks():
+def test_multistep_halo_rejects_uneven_split():
     from tpuwave.parallel.halo import make_multistep_halo_leapfrog
     mesh = device_mesh(4)
-    solver = FastWaveSolver((30, 59), ((0.0, 0.0), (1.0, 1.0)), 0.004,
+    solver = FastWaveSolver((30, 58), ((0.0, 0.0), (1.0, 1.0)), 0.004,
                             beta=0.0, dtype=jnp.float64)
-    # 15 rows/shard + 2*4 = 23: not a multiple of block_rows=8
-    with pytest.raises(ValueError, match="blocks"):
-        make_multistep_halo_leapfrog(mesh, solver, k_steps=4,
-                                     engine="pallas", block_rows=8)
+    # 59 rows do not split over 4 shards
+    with pytest.raises(ValueError, match="divide"):
+        make_multistep_halo_leapfrog(mesh, solver, k_steps=4)
 
 
 def test_multistep_halo_rejects_thin_shards():

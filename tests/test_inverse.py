@@ -390,9 +390,10 @@ def test_reversal_adjoint_matches_autodiff():
 def test_reversal_adjoint_validation():
     with pytest.raises(ValueError):
         _problem(engine="grid", adjoint="reversal")
-    with pytest.raises(ValueError):  # pallas reversal has no sponge path
-        _problem(engine="pallas", adjoint="reversal", sponge_width=0.1,
-                 pallas_interpret=True)
+    with pytest.raises(ValueError):
+        _problem(engine="scatter", adjoint="reversal")
+    with pytest.raises(ValueError, match="unknown engine"):
+        _problem(engine="fused", adjoint="reversal")
 
 
 def test_reversal_sponge_boundary_saving_matches_remat():
@@ -825,12 +826,26 @@ def test_invert_encoded_reduces_full_misfit():
     assert dm[inside].mean() < 0.0
 
 
-def test_supershot_pallas_rejected():
-    p = _problem(nel=(16, 16), n_steps=24, dt=0.006, engine="pallas",
-                 adjoint="reversal", pallas_interpret=True)
-    with pytest.raises(ValueError, match="pallas"):
-        p.simulate_supershot(jnp.ones(p.n_cells), jnp.asarray([1, 2]),
-                             jnp.asarray([1.0, -1.0]))
+def test_supershot_grid_engine_matches_scatter():
+    """The scatter-free grid engine's supershot traces and encoded-misfit
+    gradient equal the gather/segment_sum reference engine's (f64)."""
+    import jax
+    srcs_xy = [(0.3, 0.35), (0.65, 0.6)]
+    pg = _problem(nel=(16, 16), n_steps=24, dt=0.006, engine="grid")
+    ps = _problem(nel=(16, 16), n_steps=24, dt=0.006, engine="scatter")
+    rng = np.random.default_rng(3)
+    c2 = jnp.asarray(1.0 + 0.2 * rng.random(ps.n_cells))
+    srcs = ps.snap_vertices(srcs_xy)
+    codes = jnp.asarray([1.0, -1.0])
+    np.testing.assert_allclose(
+        np.asarray(pg.simulate_supershot(c2, srcs, codes)),
+        np.asarray(ps.simulate_supershot(c2, srcs, codes)),
+        rtol=1e-12, atol=1e-15)
+    obs = ps.simulate_shots(jnp.ones(ps.n_cells) * 1.1, srcs)
+    gg = jax.grad(lambda c: pg.misfit_encoded(c, srcs, codes, obs))(c2)
+    gs = jax.grad(lambda c: ps.misfit_encoded(c, srcs, codes, obs))(c2)
+    np.testing.assert_allclose(np.asarray(gg), np.asarray(gs),
+                               rtol=1e-9, atol=1e-18)
 
 
 # -- Born modeling / RTM / least-squares migration ---------------------------

@@ -1,7 +1,6 @@
-"""tpuwave — a TPU-native (JAX/XLA/Pallas) framework for the 2D scalar wave
-equation.
+"""tpuwave — a JAX/XLA framework for the 2D scalar wave equation.
 
-Re-implements, TPU-first, the full capability surface of the reference
+Re-implements, accelerator-first, the full capability surface of the reference
 deal.II/Trilinos/MPI solver ``AlessandroGhiotto/nmpde-wave-equation``:
 
     u_tt - c^2 lap(u) = f      in Omega x (0,T]
@@ -13,7 +12,7 @@ simplicial Lagrange elements on a structured triangulated rectangle,
 matrix-free operators, preconditioned CG, energy/error/probe diagnostics,
 CSV + VTU output, parameter-file driven CLI, and sweep harnesses.
 
-Architecture (bottom-up), all compute jit-compiled for TPU:
+Architecture (bottom-up), all compute jit-compiled by XLA:
 
 - ``tpuwave.utils.expr``    muparser-compatible expression -> JAX compiler
 - ``tpuwave.utils.params``  parameter files (JSON/PRM) -> typed config

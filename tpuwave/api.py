@@ -36,12 +36,13 @@ def build_solver(params: Params, family: str = "theta",
     """
     if family not in ("theta", "newmark"):
         raise ValueError(f"Unknown solver family {family!r}")
+    from tpuwave.config import enable_compile_cache
+    enable_compile_cache()
     # parity-solver-specific kwargs (e.g. lumped_explicit) keep routing to
     # the parity engine under 'auto', preserving the pre-engine-routing
     # build_solver contract; the fast engine accepts only these:
-    _fast_kwargs = {"precond", "cheby_degree", "use_pallas",
-                    "pallas_block_rows", "pallas_interpret", "solver",
-                    "sharding", "cheby_solver_degree"}
+    _fast_kwargs = {"precond", "cheby_degree", "solver", "sharding",
+                    "cheby_solver_degree"}
     if engine == "auto" and set(solver_kwargs) - _fast_kwargs:
         engine = "parity"
     from tpuwave.models.fast_engine import resolve_engine

@@ -27,7 +27,7 @@ DEFAULT_PARAM_FILE = "parameters/sine-membrane.json"
 def run_main(family: str, make_solver, argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog=f"tpuwave-{family}",
-        description=f"{family}-method solver for the 2D wave equation (TPU-native)")
+        description=f"{family}-method solver for the 2D wave equation")
     parser.add_argument("parameters", nargs="?", default=None,
                         help="path to a JSON/PRM parameter file")
     parser.add_argument("--results-root", default="results")
@@ -76,8 +76,7 @@ def run_main(family: str, make_solver, argv=None) -> int:
                              "models/fast_engine_p2_2term.py); "
                              "cheby = dot-product-free restarted "
                              "Chebyshev solve blocks with analytic "
-                             "symbol bounds, fused Pallas passes on TPU "
-                             "at R=1 (R=1/2, constant c)")
+                             "symbol bounds (R=1/2, constant c)")
     parser.add_argument("--shard", choices=("none", "rows", "blocks"),
                         default="none",
                         help="partition the fast-engine run across the "
@@ -121,6 +120,7 @@ def run_main(family: str, make_solver, argv=None) -> int:
                   file=sys.stderr)
 
     config.use_x64(not args.f32)
+    config.enable_compile_cache()
 
     import jax
     primary = jax.process_index() == 0
@@ -162,30 +162,6 @@ def run_main(family: str, make_solver, argv=None) -> int:
         print(f"  Problem name: {problem_name}")
         print(f"  Backend: {devs[0].platform}, {len(devs)} device(s), "
               f"{jax.process_count()} process(es)")
-
-    # f64 implicit envelope guard (RESULTS.md round-4 precision section):
-    # the emulated-f64 implicit solve at 4096^2 reproducibly faults the
-    # TPU device (`UNAVAILABLE: TPU device error`, mg and jacobi alike),
-    # while <= 2048^2 and the 4096^2 f64 EXPLICIT path complete normally.
-    # Refuse the known-faulting configuration with a message instead of
-    # crashing the chip; NMPDE_ALLOW_F64_IMPLICIT_LARGE=1 overrides (e.g.
-    # to re-test the envelope after an XLA/libtpu update).
-    if (not args.f32 and devs[0].platform == "tpu"
-            and os.environ.get("NMPDE_ALLOW_F64_IMPLICIT_LARGE") != "1"):
-        implicit = (params.theta > 0.0 if family == "theta"
-                    else params.beta > 1e-12)
-        nx_, ny_ = params.nel
-        if implicit and nx_ * ny_ > 2048 * 2048:
-            print(
-                f"f64 implicit stepping at {nx_}x{ny_} exceeds the "
-                "validated TPU envelope (<= 2048x2048): the emulated-f64 "
-                "implicit solve at 4096^2 reproducibly faults the device "
-                "(RESULTS.md, round-4 precision). Options: --f32 (the "
-                "compensated displacement path gives ~f48 trajectory "
-                "accuracy at f32 speed), a <= 2048^2 mesh, or set "
-                "NMPDE_ALLOW_F64_IMPLICIT_LARGE=1 to try anyway.",
-                file=sys.stderr)
-            return 1
 
     solver_kwargs = {"precond": args.precond, "solver": args.solver}
     if args.shard != "none":

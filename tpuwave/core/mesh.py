@@ -13,8 +13,8 @@ into two triangles along the lower-left -> upper-right diagonal:
 
 Every triangle is congruent to one of TWO classes (lower/upper), so affine
 Jacobians are per-class constants — no per-element geometry arrays, which is
-what lets the hot operators run as pure stencils/batched contractions on
-TPU with zero geometry traffic from HBM.
+what lets the hot operators run as pure stencils/batched contractions
+with zero geometry traffic from device memory.
 
 P1 DoFs are the vertices; P2 adds one DoF per edge (midpoint), numbered
 after the vertices in the order [horizontal edges, vertical edges, diagonal

@@ -1,6 +1,6 @@
 """Gauss quadrature on the reference triangle.
 
-TPU-native stand-in for deal.II's ``QGaussSimplex<2>(n)`` (used at reference
+Array-native stand-in for deal.II's ``QGaussSimplex<2>(n)`` (used at reference
 WaveEquationBase.cpp:82 with n = r+1 for assembly and n = r+2 for error
 integration). Rules are tabulated as constant numpy arrays on the unit
 reference triangle T = {(x, y) : x, y >= 0, x + y <= 1} (area 1/2); weights

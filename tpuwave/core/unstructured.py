@@ -10,10 +10,10 @@ and :func:`tpuwave.utils.vtu.write_mesh_vtk` emit).
 
 Unlike :class:`tpuwave.core.mesh.StructuredTriMesh`, whose two congruent
 element classes make all geometry compile-time constants, a general mesh
-carries per-cell affine Jacobians. The TPU-native consequence: operators
+carries per-cell affine Jacobians. The consequence: operators
 are built as per-cell element matrices (``a_full``) feeding the same
 gather -> batched-matvec -> segment_sum matrix-free path
-(ops/operators.py); geometry lives in HBM as (n_cells, ...) arrays,
+(ops/operators.py); geometry lives in device memory as (n_cells, ...) arrays,
 traversal is still one fused XLA program with zero host round-trips.
 
 Everything here is host-side setup code (numpy, lazily cached); jit-side
@@ -218,7 +218,7 @@ def detect_structured(mesh: "UnstructuredTriMesh", *, tol: float = 1e-12):
     match tolerance is ``tol`` relative to the coordinate/extent scale
     (Gmsh ASCII roundtrips at 16 significant digits sit at ~1e-16).
     A positive match lets the solvers run the class-constant structured
-    engines (stencil operators, Pallas kernels, ``--precond mg``) instead
+    engines (stencil operators, ``--precond mg``) instead
     of the per-cell-geometry general path — same triangulation, so the
     discrete problem is identical.
     """

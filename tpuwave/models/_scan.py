@@ -2,7 +2,7 @@
 
 ``run_steps`` / ``run_steps_diag`` compile ``len(times)`` steps of a
 solver's ``_step_impl`` into ONE device program (`lax.scan` of the step
-body) — the TPU-idiomatic whole-loop compilation of the reference while
+body) — the whole-loop compilation of the reference while
 loop (SURVEY.md section 3.1). Trajectories and CG iteration counts are
 identical to per-step calls; the runner uses these when nothing must be
 observed on the host between steps.

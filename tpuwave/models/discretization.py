@@ -173,7 +173,8 @@ class Discretization:
             return jnp.zeros(self.n_dofs, dtype=self.dtype)
         xq = self._quad_coords(self._offsets_j)        # (G, 2, Q, 2)
         fq = self.params.f.evaluate(xq[..., 0], xq[..., 1], t)  # (G, 2, Q)
-        cell_rhs = jnp.einsum("gkq,q,qi->gki", fq, self._load_w, self._load_vals)
+        cell_rhs = jnp.einsum("gkq,q,qi->gki", fq, self._load_w,
+                              self._load_vals, precision="highest")
         cd = self.space.cell_dofs.reshape(-1)
         return jax.ops.segment_sum(cell_rhs.reshape(-1), jnp.asarray(cd),
                                    num_segments=self.n_dofs)
@@ -220,8 +221,9 @@ class Discretization:
         xq = self._quad_coords(self._offsets_j)      # (G, 2, Q, 2)
         c2 = self.params.c.evaluate(xq[..., 0], xq[..., 1], t) ** 2
         if kind == "scaled":
-            return jnp.einsum("gkq,q->gk", c2, wdet).reshape(-1)
-        a_full = jnp.einsum("gkq,kqij->gkij", c2, data)
+            return jnp.einsum("gkq,q->gk", c2, wdet,
+                              precision="highest").reshape(-1)
+        a_full = jnp.einsum("gkq,kqij->gkij", c2, data, precision="highest")
         return a_full.reshape(-1, a_full.shape[-1], a_full.shape[-1])
 
     def stiffness_from_payload(self, payload):
@@ -264,8 +266,9 @@ class Discretization:
         """
         cd = jnp.asarray(self.space.cell_dofs)
         ue = u[cd].reshape(-1, 2, self.space.n_local_dofs)   # (G, 2, nloc)
-        uh = jnp.einsum("qi,eki->ekq", self._err_vals, ue)
-        guh = jnp.einsum("kqia,eki->ekqa", self._err_grads, ue)
+        uh = jnp.einsum("qi,eki->ekq", self._err_vals, ue, precision="highest")
+        guh = jnp.einsum("kqia,eki->ekqa", self._err_grads, ue,
+                         precision="highest")
         return uh, guh
 
     def _exact_at_err_quads(self, t):
@@ -285,10 +288,11 @@ class Discretization:
         uh, guh = self._fe_at_err_quads(u)
         uex, gex = self._exact_at_err_quads(t)
         w = self._err_w
-        l2_sq = jnp.einsum("ekq,q->", (uh - uex) ** 2, w)
-        semi_sq = jnp.einsum("ekqa,q->", (guh - gex) ** 2, w)
-        ex_l2_sq = jnp.einsum("ekq,q->", uex ** 2, w)
-        ex_semi_sq = jnp.einsum("ekqa,q->", gex ** 2, w)
+        l2_sq = jnp.einsum("ekq,q->", (uh - uex) ** 2, w, precision="highest")
+        semi_sq = jnp.einsum("ekqa,q->", (guh - gex) ** 2, w,
+                             precision="highest")
+        ex_l2_sq = jnp.einsum("ekq,q->", uex ** 2, w, precision="highest")
+        ex_semi_sq = jnp.einsum("ekqa,q->", gex ** 2, w, precision="highest")
 
         err_l2 = jnp.sqrt(l2_sq)
         err_h1 = jnp.sqrt(l2_sq + semi_sq)

@@ -3,7 +3,7 @@
 The reference's mains run its one (best) engine directly
 (/root/reference/src/main-newmark.cpp:24-169, src/main-theta.cpp:23-152).
 tpuwave's CLI equivalents historically always built the gather-path parity
-``Discretization``; the stencil/Pallas fast paths were Python-API-only and
+``Discretization``; the stencil fast paths were Python-API-only and
 restricted to homogeneous boundaries and zero forcing.
 
 This module closes both gaps: :class:`FastThetaSolver` and
@@ -69,8 +69,8 @@ class _Op(NamedTuple):
     """Grid operator quad: apply(u), assembled diagonal (scalar or
     plane), an upper eigenvalue bound (for the f32 backward-error
     stopping floor and Chebyshev), and — for constant-coefficient
-    operators — the 3x3 stencil (enables the fused Pallas solve path;
-    None for varcoef/tdep operators)."""
+    operators — the 3x3 stencil (its symbol bounds drive ``--solver
+    cheby``; None for varcoef/tdep operators)."""
     apply: Callable
     diag: Any
     lam_hi: Any
@@ -91,8 +91,7 @@ def fast_engine_ineligible_reason(problem) -> Optional[str]:
     :class:`~tpuwave.models.grid_diag.GridDiagnostics` /
     :class:`~tpuwave.models.p2_diag.P2GridDiagnostics` surface — the
     product path at bench scale, where building the gather-path parity
-    ``Discretization`` would exceed HBM (its O(n_cells)-shaped buffers
-    tile-pad 42-64x on TPU).
+    ``Discretization`` costs O(n_cells)-shaped gather buffers.
     """
     if isinstance(problem, Params):
         p = problem
@@ -144,8 +143,7 @@ def make_fast_solver(problem, family: str, *,
                     "newmark": FastP2NewmarkSolver}.get(family)
         if cls2 is None:
             raise ValueError(f"unknown solver family {family!r}")
-        allowed = {"use_pallas", "pallas_block_rows", "pallas_interpret",
-                   "sharding", "cheby_solver_degree", "mg_pre_degree",
+        allowed = {"sharding", "cheby_solver_degree", "mg_pre_degree",
                    "mg_smooth_range"}
         if set(engine_kwargs) - allowed:
             raise TypeError("P2 fast engine does not accept "
@@ -210,9 +208,7 @@ class _FastEngineBase(ScanMixin):
     """Shared plumbing: operators, boundary/forcing data, elimination."""
 
     def __init__(self, problem, *, precond: str = "jacobi",
-                 cheby_degree: int = 3, use_pallas=None,
-                 pallas_block_rows: int = 128,
-                 pallas_interpret: bool = False, sharding=None,
+                 cheby_degree: int = 3, sharding=None,
                  solver: str = "3term", cheby_solver_degree: int = 8):
         reason = fast_engine_ineligible_reason(problem)
         if reason is not None:
@@ -247,12 +243,11 @@ class _FastEngineBase(ScanMixin):
         #: reference's GridTools::partition_triangulation across MPI
         #: ranks (WaveEquationBase.cpp:65-69). GSPMD lowers the stencil
         #: rolls to nearest-neighbour collective-permutes and the CG /
-        #: diagnostics reductions to psum; the fused single-device
-        #: Pallas solve path is disabled under sharding. Grids whose row
-        #: count divides the mesh keep a persistently row-sharded state
-        #: (device_put); other row counts (e.g. 2^k + 1) get in-step
-        #: ``with_sharding_constraint`` layouts instead — GSPMD pads the
-        #: uneven tiling internally (jax device_put rejects it).
+        #: diagnostics reductions to psum. Grids whose row count divides the
+        #: mesh keep a persistently row-sharded state (device_put); other row
+        #: counts (e.g. 2^k + 1) get in-step ``with_sharding_constraint``
+        #: layouts instead — GSPMD pads the uneven tiling internally (jax
+        #: device_put rejects it).
         self.sharding = sharding
         self._flat_sharding = None
         self._even_shards = False
@@ -335,33 +330,11 @@ class _FastEngineBase(ScanMixin):
             raise ValueError(f"Unknown preconditioner {precond!r}")
         self._prec_mass = 1.0 / fs.mass.stencil[1][1]
 
-        # fused Pallas solve path: every CG matvec (and the MG fine
-        # level) as halo-DMA Mosaic kernels. Auto-on when running f32 on
-        # an accelerator with constant-coefficient operators and a grid
-        # big enough for the kernels; rhs/BC-lift assembly stays XLA
-        # (one pass per solve — the matvecs dominate).
-        h, w = fs.shape
-        self._pblock = int(pallas_block_rows)
-        self._pinterp = bool(pallas_interpret)
-        hp = -(-h // self._pblock) * self._pblock
-        wp = -(-w // 128) * 128
-        self._pad_shape = (hp, wp)
-        if sharding is not None:
-            use_pallas = False   # halo-DMA kernels are single-device
-        elif use_pallas is None:
-            try:
-                on_accel = jax.devices()[0].platform not in ("cpu",)
-            except Exception:
-                on_accel = False
-            use_pallas = (on_accel and self.dtype == jnp.float32
-                          and self._c_mode == "const"
-                          and hp // self._pblock >= 2)
         #: inner linear solver: "3term" = the parity CG contract;
         #: "cheby" = restarted Chebyshev iteration with analytic
         #: stencil-symbol eigenvalue bounds (solve/cheby_iter.py — no dot
-        #: products, so iterations fuse into temporally-blocked Pallas
-        #: passes on TPU). Constant wave speed only (the symbol bounds
-        #: are per-stencil constants); same ReductionControl stopping
+        #: products inside a block). Constant wave speed only (the symbol
+        #: bounds are per-stencil constants); same ReductionControl stopping
         #: contract, different iteration counts (documented perf mode).
         self._solver = solver
         self._cheby_solver_degree = int(cheby_solver_degree)
@@ -370,53 +343,7 @@ class _FastEngineBase(ScanMixin):
                 "--solver cheby needs a constant wave speed (analytic "
                 "stencil-symbol bounds); use 3term/2term for varcoef or "
                 "time-dependent C")
-        self._use_pallas = bool(use_pallas)
-        if self._use_pallas and precond == "mg":
-            from tpuwave.solve.multigrid import PallasGmgPreconditioner
-            base = self._prec_sys
-            if len(base.levels) >= 2:
-                self._prec_sys = PallasGmgPreconditioner(
-                    base.levels, base.coarse_theta, base.coarse_coeffs,
-                    block_rows=self._pblock, interpret=self._pinterp)
-            else:
-                self._use_pallas = False
-
         self._step = jax.jit(self._step_impl)
-
-    # -- fused Pallas solve path ----------------------------------------
-    def _solve_pallas(self, op: _Op, rhs_c, x0, precond):
-        from tpuwave.ops.pallas_kernels import (
-            constrained_stencil_apply_pallas)
-        fs = self.fs
-        h, w = fs.shape
-        hp, wp = self._pad_shape
-        st, diag = op.stencil, op.stencil[1][1]
-
-        def apply_p(xp):
-            return constrained_stencil_apply_pallas(
-                xp, stencil=st, diag=diag, block_rows=self._pblock,
-                true_rows=h, true_cols=w, interpret=self._pinterp)
-
-        if self.precond == "chebyshev" and callable(precond):
-            # the XLA-built chebyshev closure acts on unpadded grids;
-            # rebuild it over the fused padded apply (the PallasGmg mg
-            # preconditioner is padded-native and passes through)
-            from tpuwave.solve.chebyshev import chebyshev_apply
-            dmin = jnp.min(jnp.asarray(op.diag))
-            lmax = op.lam_hi / dmin
-            deg = self.cheby_degree
-
-            def precond(r):
-                return chebyshev_apply(apply_p, 1.0 / diag, r,
-                                       lambda_max=lmax, degree=deg)
-
-        def pad(x):
-            return jnp.zeros((hp, wp), self.dtype).at[:h, :w].set(x)
-
-        res = pcg(apply_p, pad(rhs_c), pad(x0), precond_inv_diag=precond,
-                  abs_tol=self._abs_tol(rhs_c, x0, op),
-                  max_iter=self._max_iter, reduction=fs.cg_reduction)
-        return res._replace(x=res.x[:h, :w])
 
     # -- operator construction -----------------------------------------
     def _k_from_planes(self, planes) -> _Op:
@@ -539,8 +466,6 @@ class _FastEngineBase(ScanMixin):
                                              g_zero=g_zero)
         if self._solver == "cheby":
             return self._solve_cheby(op, rhs_c, x0)
-        if self._use_pallas and op.stencil is not None:
-            return self._solve_pallas(op, rhs_c, x0, precond)
         return pcg(apply_c, rhs_c, x0, precond_inv_diag=precond,
                    abs_tol=self._abs_tol(rhs_c, x0, op),
                    max_iter=self._max_iter, reduction=self.fs.cg_reduction)
@@ -550,61 +475,17 @@ class _FastEngineBase(ScanMixin):
         (--solver cheby): data-independent coefficient schedules from the
         analytic stencil-symbol bounds, so there are no dot products in
         the iteration — blocks of ``cheby_solver_degree`` iterations run
-        between residual checks, and on TPU each block is ONE fused
-        Pallas halo pass (ops/pallas_kernels.py::cheby_block_pallas).
-        Same ReductionControl stopping contract as the CG paths."""
-        from tpuwave.solve.cheby_iter import (chebyshev_coefficients,
-                                              chebyshev_solve,
+        between residual checks. Same ReductionControl stopping contract
+        as the CG paths."""
+        from tpuwave.solve.cheby_iter import (chebyshev_solve,
                                               stencil_symbol_bounds)
         lo, hi = stencil_symbol_bounds(op.stencil)
         deg = self._cheby_solver_degree
         abs_tol = self._abs_tol(rhs_c, x0, op)
-        if not self._use_pallas:
-            return chebyshev_solve(
-                self._constrained_apply(op), rhs_c, x0, lam_min=lo,
-                lam_max=hi, degree=deg, abs_tol=abs_tol,
-                reduction=self.fs.cg_reduction, max_iter=self._max_iter)
-        # fused path: every block is one temporally-blocked Mosaic pass
-        from tpuwave.ops.pallas_kernels import (
-            cheby_block_pallas, constrained_stencil_apply_pallas)
-        from tpuwave.solve.cg import CgResult
-        fs = self.fs
-        h, w = fs.shape
-        hp, wp = self._pad_shape
-        st = op.stencil
-        theta_c, coeffs = chebyshev_coefficients(lo, hi, deg)
-        coeffs = tuple(coeffs)
-        kw = dict(block_rows=self._pblock, true_rows=h, true_cols=w,
-                  interpret=self._pinterp)
-
-        def pad(x):
-            return jnp.zeros((hp, wp), self.dtype).at[:h, :w].set(x)
-
-        x0p, bp = pad(x0), pad(rhs_c)
-        r0 = bp - constrained_stencil_apply_pallas(
-            x0p, stencil=st, diag=st[1][1], **kw)
-        rn2_0 = jnp.vdot(r0, r0).real.astype(jnp.float32)
-        tol = jnp.maximum(jnp.asarray(abs_tol, self.dtype),
-                          fs.cg_reduction * jnp.sqrt(rn2_0).astype(
-                              self.dtype))
-        tol2 = (tol * tol).astype(jnp.float32)
-        max_iter = self._max_iter
-
-        def cond(c):
-            x, r, rn2, k = c
-            return jnp.logical_and(rn2 > tol2, k < max_iter)
-
-        def body(c):
-            x, r, _, k = c
-            x, r, rn2 = cheby_block_pallas(
-                x, r, stencil=st, theta=theta_c, coeffs=coeffs, **kw)
-            return (x, r, rn2[0, 0], k + deg)
-
-        x, r, rn2, k = jax.lax.while_loop(
-            cond, body, (x0p, r0, rn2_0, jnp.asarray(0, jnp.int32)))
-        rnorm = jnp.sqrt(rn2).astype(self.dtype)
-        return CgResult(x=x[:h, :w], iterations=k, residual_norm=rnorm,
-                        converged=rnorm <= tol)
+        return chebyshev_solve(
+            self._constrained_apply(op), rhs_c, x0, lam_min=lo,
+            lam_max=hi, degree=deg, abs_tol=abs_tol,
+            reduction=self.fs.cg_reduction, max_iter=self._max_iter)
 
     def step(self, state: FastGridState, t):
         return self._step(state, t)

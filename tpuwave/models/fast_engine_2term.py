@@ -27,7 +27,7 @@ leaves the O(dt^2)-small residual
 
 with c_u = gamma + 1/2 / 2 theta and c_up = 1/2 - gamma / 1 - 2 theta —
 the driven-boundary lift of the homogeneous recurrence (the delta term
-vanishes for g == 0). Each step costs one fused stencil pass for r0
+vanishes for g == 0). Each step costs one stencil pass for r0
 (+ one A pass for the lift when g != 0) plus ~1 MG-PCG iteration — no
 mass/velocity solve. Replaces the reference's two AMG-CG solves per theta
 step / one per Newmark step (WaveTheta.cpp:251-339,
@@ -95,8 +95,8 @@ class Fast2TermState(NamedTuple):
 
 class _Fast2TermBase(_FastEngineBase):
     """Shared 2-term machinery on top of the P1 product-engine base
-    (operators, boundary/forcing evaluators, elimination, Pallas/mg
-    plumbing all inherited)."""
+    (operators, boundary/forcing evaluators, elimination, mg plumbing
+    all inherited)."""
 
     def __init__(self, problem, *, precond: str = "mg", **kw):
         kw.pop("solver", None)
@@ -143,19 +143,7 @@ class _Fast2TermBase(_FastEngineBase):
         self._s_abs = (abs(self._c_u) + abs(self._c_up)) \
             * self.dt * self.dt * k_mag
 
-        # fused setup path: the whole r0/x0/norms computation as ONE
-        # halo pass (recurrence_r0_pallas with mask_combo=False so the
-        # stencil sees the true driven boundary values) + an
-        # O(perimeter) boundary-lift ring correction — replaces ~6 XLA
-        # full-grid passes per step (measured 52.8 -> see RESULTS.md)
         self._sys_op_static = self._system_of(k)
-        self._fused_ok = (self._use_pallas and k.stencil is not None
-                          and self._sys_op_static.stencil is not None
-                          and self._f is None)
-        if self._fused_ok:
-            dt = self.dt
-            self._kneg = tuple(tuple(-dt * dt * cc for cc in row)
-                               for row in k.stencil)
 
     # -- forcing -------------------------------------------------------
     def _f_combo(self, t):
@@ -201,36 +189,6 @@ class _Fast2TermBase(_FastEngineBase):
                 eta * self._s_abs * x0_norm,
                 0.5 * jnp.sqrt(rn2)).astype(self.dtype)
         prec = self._sys_precond(sys_op)
-        if self._use_pallas and sys_op.stencil is not None:
-            from tpuwave.ops.pallas_kernels import (
-                constrained_stencil_apply_pallas)
-            fs = self.fs
-            h, w = fs.shape
-            hp, wp = self._pad_shape
-            st = sys_op.stencil
-
-            def apply_p(xp):
-                return constrained_stencil_apply_pallas(
-                    xp, stencil=st, diag=st[1][1],
-                    block_rows=self._pblock, true_rows=h, true_cols=w,
-                    interpret=self._pinterp)
-
-            if self.precond == "chebyshev" and callable(prec):
-                from tpuwave.solve.chebyshev import chebyshev_apply
-                diag = st[1][1]
-                lmax = sys_op.lam_hi / jnp.min(jnp.asarray(sys_op.diag))
-                deg = self.cheby_degree
-
-                def prec(r):
-                    return chebyshev_apply(apply_p, 1.0 / diag, r,
-                                           lambda_max=lmax, degree=deg)
-
-            r0p = jnp.zeros((hp, wp), self.dtype).at[:h, :w].set(r0)
-            res = pcg(apply_p, r0p, jnp.zeros_like(r0p), r0=r0p,
-                      norm0_sq=rn2, precond_inv_diag=prec,
-                      abs_tol=abs_tol, max_iter=self._max_iter,
-                      reduction=self.fs.cg_reduction)
-            return res._replace(x=res.x[:h, :w])
         apply_c = self._constrained_apply(sys_op)
         return pcg(apply_c, r0, jnp.zeros_like(r0), r0=r0, norm0_sq=rn2,
                    precond_inv_diag=prec, abs_tol=abs_tol,
@@ -394,8 +352,6 @@ class _Fast2TermBase(_FastEngineBase):
         return self._pack(u1, u0, state, res.iterations, strips)
 
     def _recur_step(self, state: Fast2TermState, t):
-        if self._fused_ok:
-            return self._recur_step_fused(state, t)
         fs, dt = self.fs, self.dt
         c_u, c_up = self._c_u, self._c_up
         u = self._shard_grid(state.u.reshape(fs.shape))
@@ -435,159 +391,6 @@ class _Fast2TermBase(_FastEngineBase):
             strips = (state.vb, state.ab, state.ab_prev)
         return self._pack(u_new.astype(self.dtype), u, state,
                           res.iterations, strips)
-
-    def _ring_lift(self, r0p, rn2, delta4):
-        """Subtract interior(A(delta 1_b)) from the padded r0 in
-        O(perimeter) arithmetic (A(delta 1_b) is supported on the first
-        interior ring) and return the corrected (r0p, ||r0||^2).
-
-        The boundary is partitioned corner-exactly: left/right columns
-        take ALL rows (incl. the four corners), bottom/top rows take
-        cols 1..w-2 only — each boundary cell contributes once."""
-        h, w = self.fs.shape
-        A = self._sys_op_static.stencil
-        db = jnp.zeros(w, self.dtype).at[1:w - 1].set(delta4[0, 1:w - 1])
-        dtp = jnp.zeros(w, self.dtype).at[1:w - 1].set(delta4[1, 1:w - 1])
-        dl = delta4[2, :h]
-        dr = delta4[3, :h]
-        # output (1, j) <- boundary (0, j+di): coeff A[0][1+di]
-        row1 = A[0][0] * db[0:w - 2] + A[0][1] * db[1:w - 1] \
-            + A[0][2] * db[2:w]
-        # output (h-2, j) <- boundary (h-1, j+di): coeff A[2][1+di]
-        rowh = A[2][0] * dtp[0:w - 2] + A[2][1] * dtp[1:w - 1] \
-            + A[2][2] * dtp[2:w]
-        # output (i, 1) <- boundary (i+dj, 0): coeff A[1+dj][0]
-        col1 = A[0][0] * dl[0:h - 2] + A[1][0] * dl[1:h - 1] \
-            + A[2][0] * dl[2:h]
-        # output (i, w-2) <- boundary (i+dj, w-1): coeff A[1+dj][2]
-        colw = A[0][2] * dr[0:h - 2] + A[1][2] * dr[1:h - 1] \
-            + A[2][2] * dr[2:h]
-
-        def ring_sq(rp):
-            return (jnp.vdot(rp[1, 1:w - 1], rp[1, 1:w - 1])
-                    + jnp.vdot(rp[h - 2, 1:w - 1], rp[h - 2, 1:w - 1])
-                    + jnp.vdot(rp[2:h - 2, 1], rp[2:h - 2, 1])
-                    + jnp.vdot(rp[2:h - 2, w - 2], rp[2:h - 2, w - 2]))
-
-        old = ring_sq(r0p)
-        r0p = r0p.at[1, 1:w - 1].add(-row1)
-        r0p = r0p.at[h - 2, 1:w - 1].add(-rowh)
-        r0p = r0p.at[1:h - 1, 1].add(-col1)
-        r0p = r0p.at[1:h - 1, w - 2].add(-colw)
-        rn2 = rn2 + (ring_sq(r0p) - old).astype(rn2.dtype)
-        return r0p, rn2
-
-    def _recur_step_fused(self, state: Fast2TermState, t):
-        """Fused-setup recurrence step (TPU production form): ONE
-        recurrence_r0 halo pass (mask_combo=False — the stencil reads
-        the true driven boundary values) + O(perimeter) ring lift +
-        MG-PCG or fused-Chebyshev correction solve + edge overlays."""
-        fs, dt = self.fs, self.dt
-        h, w = fs.shape
-        hp, wp = self._pad_shape
-        from tpuwave.ops.pallas_kernels import recurrence_r0_pallas
-        u = state.u.reshape(fs.shape)
-        up = state.u_prev.reshape(fs.shape)
-
-        def pad(x):
-            return jnp.zeros((hp, wp), self.dtype).at[:h, :w].set(x)
-
-        u_pad, up_pad = pad(u), pad(up)
-        r0p, x0p, rn2, xn2 = recurrence_r0_pallas(
-            u_pad, up_pad, k_stencil=self._kneg, c_u=self._c_u,
-            c_up=self._c_up, block_rows=self._pblock, true_rows=h,
-            true_cols=w, interpret=self._pinterp, mask_combo=False)
-        rn2 = jnp.reshape(rn2, ())
-        xn2 = jnp.reshape(xn2, ())
-
-        g_edges = None
-        if self._needs_lift:
-            g_edges = self._edge_vals(self._g, t)
-            delta4 = (g_edges - 2.0 * self._grid_edges(u)
-                      + self._grid_edges(up))
-            r0p, rn2 = self._ring_lift(r0p, rn2, delta4)
-
-        res = self._solve_corr_pad(r0p, rn2, jnp.sqrt(xn2))
-        u_new = (x0p + res.x)[:h, :w]
-        if g_edges is not None:
-            u_new = u_new.at[0, :].set(g_edges[0, :w])
-            u_new = u_new.at[h - 1, :].set(g_edges[1, :w])
-            u_new = u_new.at[:, 0].set(g_edges[2, :h])
-            u_new = u_new.at[:, w - 1].set(g_edges[3, :h])
-        if self.method_name == "newmark":
-            # u^n boundary = g(t^n) exactly from step 1 on (derived BC)
-            vb1, ab1 = self._advance_strips(
-                state.vb, state.ab, self._edge_vals(self._g, t - dt), t)
-            strips = (vb1, ab1, state.ab)
-        else:
-            strips = (state.vb, state.ab, state.ab_prev)
-        return self._pack(u_new.astype(self.dtype), u, state,
-                          res.iterations, strips)
-
-    def _solve_corr_pad(self, r0p, rn2, x0_norm):
-        """Correction solve on the PADDED residual (fused path): MG-PCG
-        by default; restarted Chebyshev iteration when
-        precond == 'chebyshev' (data-independent schedules from the
-        analytic symbol bounds — each degree-`cheby_solver_degree` block
-        is ONE fused Mosaic pass, no dot products)."""
-        from tpuwave.ops.pallas_kernels import (
-            constrained_stencil_apply_pallas)
-        sys_op = self._sys_op_static
-        st = sys_op.stencil
-        h, w = self.fs.shape
-        kw = dict(block_rows=self._pblock, true_rows=h, true_cols=w,
-                  interpret=self._pinterp)
-
-        if self.dtype == jnp.float64:
-            abs_tol = jnp.minimum(jnp.asarray(1e-12, self.dtype),
-                                  0.5 * jnp.sqrt(rn2).astype(self.dtype))
-        else:
-            eta = float(jnp.finfo(self.dtype).eps)
-            abs_tol = jnp.minimum(
-                eta * self._s_abs * x0_norm,
-                0.5 * jnp.sqrt(rn2)).astype(self.dtype)
-
-        def apply_p(xp):
-            return constrained_stencil_apply_pallas(
-                xp, stencil=st, diag=st[1][1], **kw)
-
-        if self.precond == "chebyshev":
-            from tpuwave.ops.pallas_kernels import cheby_block_pallas
-            from tpuwave.solve.cg import CgResult
-            from tpuwave.solve.cheby_iter import (chebyshev_coefficients,
-                                                  stencil_symbol_bounds)
-            lo, hi = stencil_symbol_bounds(st)
-            deg = self._cheby_solver_degree
-            theta_c, coeffs = chebyshev_coefficients(lo, hi, deg)
-            coeffs = tuple(coeffs)
-            tol = jnp.maximum(abs_tol,
-                              self.fs.cg_reduction
-                              * jnp.sqrt(rn2).astype(self.dtype))
-            tol2 = (tol * tol).astype(jnp.float32)
-            max_iter = self._max_iter
-
-            def cond(c):
-                x, r, rr, k = c
-                return jnp.logical_and(rr > tol2, k < max_iter)
-
-            def body(c):
-                x, r, _, k = c
-                x, r, rr = cheby_block_pallas(
-                    x, r, stencil=st, theta=theta_c, coeffs=coeffs, **kw)
-                return (x, r, rr[0, 0], k + deg)
-
-            x, r, rr, k = jax.lax.while_loop(
-                cond, body, (jnp.zeros_like(r0p), r0p,
-                             rn2.astype(jnp.float32),
-                             jnp.asarray(0, jnp.int32)))
-            rnorm = jnp.sqrt(rr).astype(self.dtype)
-            return CgResult(x=x, iterations=k, residual_norm=rnorm,
-                            converged=rnorm <= tol)
-
-        prec = self._sys_precond(sys_op)
-        return pcg(apply_p, r0p, jnp.zeros_like(r0p), r0=r0p,
-                   norm0_sq=rn2, precond_inv_diag=prec, abs_tol=abs_tol,
-                   max_iter=self._max_iter, reduction=self.fs.cg_reduction)
 
     def _pack(self, u_new, u_old, state, iters, strips):
         u_flat = u_new.reshape(-1)

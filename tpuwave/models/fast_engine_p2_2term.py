@@ -31,9 +31,9 @@ here on the canvas layout of models/fast_engine_p2.py:
   carried strip BCs for Newmark.
 
 The state stays in the (4, Hc, Wc) canvas layout for the whole step, so
-the correction solve's CG matvecs run through the fused Mosaic kernel
-(ops/pallas_p2.py) when enabled, and the identical-shape plane stack
-row-shards over a device mesh (``--shard rows --solver 2term`` at R=2).
+the correction solve's CG matvecs run canvas-native, and the
+identical-shape plane stack row-shards over a device mesh
+(``--shard rows --solver 2term`` at R=2).
 
 Scope: constant or spatially varying wave speed (the elimination assumes
 K static in time) and beta > 0 for Newmark — same scope as the P1 module.
@@ -76,7 +76,7 @@ class P22TermState(NamedTuple):
 
 class _FastP22TermBase(_FastP2EngineBase):
     """Shared 2-term machinery on top of the canvas P2 product-engine
-    base (operators, boundary/forcing evaluators, elimination, Pallas/mg
+    base (operators, boundary/forcing evaluators, elimination, mg
     plumbing all inherited)."""
 
     def __init__(self, problem, *, precond: str = "mg", **kw):

@@ -397,8 +397,7 @@ class P2CanvasSolver:
                  c: float = 1.0, beta: float = 0.25, gamma: float = 0.5,
                  scheme: str = "newmark", theta: float = 0.5,
                  dtype=jnp.float32, sharding=None, row_multiple: int = 1,
-                 use_pallas: bool = False, pallas_block_rows: int = 64,
-                 pallas_interpret: bool = False, cg_reduction: float = 1e-6,
+                 cg_reduction: float = 1e-6,
                  precond: str = "jacobi", mg_pre_degree: int = 1,
                  mg_smooth_range: float = 8.0):
         if scheme not in ("newmark", "theta"):
@@ -425,15 +424,6 @@ class P2CanvasSolver:
                     else (self.theta * self.dt) ** 2)
         self.system = self.mass.axpy(sys_coef, self.stiff)
 
-        self.use_pallas = bool(use_pallas)
-        self.pallas_block_rows = int(pallas_block_rows)
-        self.pallas_interpret = bool(pallas_interpret)
-        if use_pallas and not pallas_interpret:
-            # re-pad for Mosaic: rows to block multiple, cols to 128 lanes
-            self.cshape = canvas_shape(
-                self.nx, self.ny,
-                row_multiple=max(row_multiple, self.pallas_block_rows),
-                col_multiple=128)
         self.interior = self._interior_canvas_mask()
         from tpuwave.ops.stencil_p2 import _PLANES
         diag = jnp.asarray([self.system.plane_diag[p] for p in _PLANES],
@@ -453,8 +443,8 @@ class P2CanvasSolver:
         if precond == "mg":
             # (p+h)-multigrid for the system solves on the canvas layout:
             # dt-independent CG iteration counts at CFL-breaking dt, with
-            # the smoothing applies running through the (optionally
-            # Pallas-fused) constrained canvas apply. The mass v-solve
+            # the smoothing applies running through the constrained
+            # canvas apply. The mass v-solve
             # keeps Jacobi (mesh-independent conditioning).
             from tpuwave.solve.multigrid import (P2CanvasGmgPreconditioner,
                                                  p2_gmg_for_system)
@@ -530,17 +520,7 @@ class P2CanvasSolver:
         return P2CanvasState(u=u0, v=v0, a=res.x.astype(self.dtype))
 
     def _rhs_stiff(self, z):
-        """interior-masked -K z (homogeneous data), via the fused kernel
-        when enabled."""
-        if self.use_pallas:
-            from tpuwave.ops.pallas_p2 import (coeffs_to_static,
-                                               p2_constrained_apply_pallas)
-            coeffs = coeffs_to_static(self.stiff.coeffs)
-            return -p2_constrained_apply_pallas(
-                z, coeffs=coeffs, diags=(0.0, 0.0, 0.0, 0.0),
-                nx=self.nx, ny=self.ny,
-                block_rows=self.pallas_block_rows,
-                interpret=self.pallas_interpret)
+        """interior-masked -K z (homogeneous data)."""
         return jnp.where(self.interior, -self.stiff.apply_canvases(z), 0.0)
 
     @property
@@ -553,20 +533,6 @@ class P2CanvasSolver:
 
     def _constrained(self, op):
         from tpuwave.ops.stencil_p2 import _PLANES
-        if self.use_pallas:
-            # fused kernel: input masking + stencil + pinning in one pass
-            from tpuwave.ops.pallas_p2 import (coeffs_to_static,
-                                               p2_constrained_apply_pallas)
-            coeffs = coeffs_to_static(op.coeffs)
-            diags = tuple(float(op.plane_diag[p]) for p in _PLANES)
-
-            def apply_c(w):
-                return p2_constrained_apply_pallas(
-                    w, coeffs=coeffs, diags=diags, nx=self.nx, ny=self.ny,
-                    block_rows=self.pallas_block_rows,
-                    interpret=self.pallas_interpret)
-            return apply_c
-
         diag = jnp.asarray([op.plane_diag[p] for p in _PLANES],
                            dtype=self.dtype).reshape(4, 1, 1)
 

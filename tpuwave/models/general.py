@@ -8,11 +8,11 @@ mesh (Gmsh .msh or legacy VTK, tpuwave/core/unstructured.py) and solves on
 it with the identical scheme steppers — same boundary treatment, same CG
 contract, same diagnostics.
 
-TPU shape of the general path: geometry is per-cell (n_cells, ...) arrays
-in HBM; operators are per-cell element matrices on the shared
+Shape of the general path: geometry is per-cell (n_cells, ...) arrays
+in device memory; operators are per-cell element matrices on the shared
 gather -> batched matvec -> segment_sum path
 (ops/operators.py ``a_full`` mode), so each apply is still one fused XLA
-program. The structured fast paths (stencils, Pallas) remain exclusive to
+program. The structured fast paths (stencils) remain exclusive to
 generated rectangle meshes, where geometry is compile-time constant.
 """
 
@@ -264,7 +264,8 @@ class UnstructuredDiscretization(Discretization):
         xq = self._load_xq                                     # (C, Q, 2)
         fq = self.params.f.evaluate(xq[..., 0], xq[..., 1], t)  # (C, Q)
         cell_rhs = jnp.einsum("cq,q,qi,c->ci", fq, self._load_w,
-                              self._load_vals, self._det_j)
+                              self._load_vals, self._det_j,
+                              precision="highest")
         cd = self._cd_vec.reshape(-1)
         return jax.ops.segment_sum(cell_rhs.reshape(-1), cd,
                                    num_segments=self.n_vec)
@@ -280,7 +281,7 @@ class UnstructuredDiscretization(Discretization):
         c2 = jnp.broadcast_to(jnp.asarray(c2, self.dtype), xq.shape[:2])
         g = self._grads_j
         a_full = jnp.einsum("cq,q,cqia,cqja,c->cij", c2, self._load_w,
-                            g, g, self._det_j)
+                            g, g, self._det_j, precision="highest")
         if self.dof_plan is not None:
             # permute + pad cells into the banded order so
             # stiffness_from_payload is free (parallel/dofs.py layout)
@@ -325,8 +326,9 @@ class UnstructuredDiscretization(Discretization):
         """uh: (C, Q2); grad_uh: (C, Q2, 2)."""
         cd = self._cd_vec
         ue = u[cd]                                             # (C, nloc)
-        uh = jnp.einsum("qi,ci->cq", self._err_vals, ue)
-        guh = jnp.einsum("cqia,ci->cqa", self._err_grads, ue)
+        uh = jnp.einsum("qi,ci->cq", self._err_vals, ue, precision="highest")
+        guh = jnp.einsum("cqia,ci->cqa", self._err_grads, ue,
+                         precision="highest")
         return uh, guh
 
     def _exact_at_err_quads(self, t):
@@ -343,10 +345,14 @@ class UnstructuredDiscretization(Discretization):
         uh, guh = self._fe_at_err_quads(u)
         uex, gex = self._exact_at_err_quads(t)
         w, det = self._err_w, self._det_j
-        l2_sq = jnp.einsum("cq,q,c->", (uh - uex) ** 2, w, det)
-        semi_sq = jnp.einsum("cqa,q,c->", (guh - gex) ** 2, w, det)
-        ex_l2_sq = jnp.einsum("cq,q,c->", uex ** 2, w, det)
-        ex_semi_sq = jnp.einsum("cqa,q,c->", gex ** 2, w, det)
+        l2_sq = jnp.einsum("cq,q,c->", (uh - uex) ** 2, w, det,
+                           precision="highest")
+        semi_sq = jnp.einsum("cqa,q,c->", (guh - gex) ** 2, w, det,
+                             precision="highest")
+        ex_l2_sq = jnp.einsum("cq,q,c->", uex ** 2, w, det,
+                              precision="highest")
+        ex_semi_sq = jnp.einsum("cqa,q,c->", gex ** 2, w, det,
+                                precision="highest")
 
         err_l2 = jnp.sqrt(l2_sq)
         err_h1 = jnp.sqrt(l2_sq + semi_sq)

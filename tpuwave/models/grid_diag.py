@@ -1,10 +1,8 @@
 """O(grid) diagnostics surface for the product fast engine.
 
 The parity ``Discretization`` carries O(n_cells)-shaped element arrays
-(cell connectivity, per-cell quadrature anchors) whose small trailing
-dimensions get 42-64x tile-padding inflation as TPU buffers — at the
-4096^2 bench scale that alone exceeds one chip's HBM (measured: a
-f32[16.8M, 2, 3] copy asks for 25.8 GB under T(8,128) tiling). The fast
+(cell connectivity, per-cell quadrature anchors): O(n_cells) memory and
+gather traffic that the grid engines do not need. The fast
 grid-stencil engine never needs any of it: this class implements the run
 driver's full diagnostics surface (models/runner.py) with pure grid-plane
 arithmetic — iota-generated coordinates, slice-window quadratic forms and
@@ -26,11 +24,33 @@ import numpy as np
 
 from tpuwave.core.mesh import FeSpace, StructuredTriMesh
 from tpuwave.core.quadrature import gauss_simplex
-from tpuwave.ops.assembly import element_mass_class, element_stiffness_class
+from tpuwave.ops.assembly import element_mass_class
 from tpuwave.ops.stencil import P1_CLASS_CORNERS
 from tpuwave.utils.params import Params
 
 __all__ = ["GridDiagnostics"]
+
+
+def energy_grad_sq(win, grads):
+    """|grad u|^2 over all cells of one element class at one quadrature
+    point, from the local-DoF windows ``win`` (one (ny, nx) plane per
+    local DoF) and that point's physical basis gradients ``grads``
+    (nloc, 2). Difference form: the basis gradients sum to zero, so
+    grad u = sum_{i>0} (w_i - w_0) grad phi_i — no O(|u|) terms cancel,
+    which keeps an f32 stiffness energy accurate where the direct
+    w^T K w sum loses it to cancellation on fine meshes."""
+    total = None
+    for a in range(2):
+        comp = None
+        for i in range(1, len(win)):
+            c = float(grads[i, a])
+            if c == 0.0:
+                continue
+            term = c * (win[i] - win[0])
+            comp = term if comp is None else comp + term
+        if comp is not None:
+            total = comp * comp if total is None else total + comp * comp
+    return total
 
 
 class GridDiagnostics:
@@ -50,19 +70,18 @@ class GridDiagnostics:
         space = FeSpace(self.mesh, 1)
         quad = gauss_simplex(2)
         self._m_class = np.asarray(element_mass_class(space, quad))
+        #: per-class physical gradients (q-independent for P1): the
+        #: stiffness form is s_k |grad u|^2 per cell (energy_grad_sq)
+        self._grads = np.asarray(space.physical_grads(
+            space.shape_at(quad)))[:, 0]                # (2, 3, 2)
         c_const = params.c.constant_value
         if c_const is not None:
-            self._k_class = np.asarray(
-                element_stiffness_class(space, quad, c_const ** 2))
-            self._k_scales = None
+            s_k = (float(c_const) ** 2 * self.mesh.det_j
+                   * float(np.sum(quad.weights)))
+            self._k_scales = (s_k, s_k)
         else:
-            # varcoef: G gradient-product class matrices (q-independent
-            # for P1) + per-cell scales det sum_q w_q c^2(x_q, 0) — the
+            # varcoef: per-cell scales det sum_q w_q c^2(x_q, 0) — the
             # reference freezes c at t = 0 for the energy operator too
-            sh = space.shape_at(quad)
-            grads = space.physical_grads(sh)            # (2, Q, 3, 2)
-            self._k_class = np.einsum("cqia,cqja->cqij", grads,
-                                      grads)[:, 0]      # (2, 3, 3)
             self._k_scales = self._scales_at(0.0)       # (2, ny, nx)
 
         # probe: containing cell + P1 basis at the domain centre
@@ -136,9 +155,8 @@ class GridDiagnostics:
         return [wg[oy:oy + ny, ox:ox + nx]
                 for (ox, oy) in P1_CLASS_CORNERS[k]]
 
-    def _quad_form(self, wg, a_class, scales=None):
-        """sum_cells w_e^T A_e w_e with per-class constant A (optionally
-        per-cell scaled — the varcoef stiffness)."""
+    def _quad_form(self, wg, a_class):
+        """sum_cells w_e^T A_e w_e with per-class constant A."""
         total = None
         for k in range(2):
             win = self._windows(wg, k)
@@ -150,8 +168,6 @@ class GridDiagnostics:
                         continue
                     term = a * (win[i] * win[j])
                     acc = term if acc is None else acc + term
-            if scales is not None:
-                acc = scales[k] * acc
             s = jnp.sum(acc)
             total = s if total is None else total + s
         return total
@@ -163,10 +179,8 @@ class GridDiagnostics:
         ug = jnp.asarray(u, self.dtype).reshape(self.shape)
         vg = jnp.asarray(v, self.dtype).reshape(self.shape)
         em = self._quad_form(vg, self._m_class)
-        if self._k_scales is None:
-            ek = self._quad_form(ug, self._k_class)
-        else:
-            ek = self._quad_form(ug, self._k_class, self._k_scales)
+        ek = sum(jnp.sum(self._k_scales[k] * energy_grad_sq(
+            self._windows(ug, k), self._grads[k])) for k in range(2))
         return 0.5 * (em + ek)
 
     # -- probe ----------------------------------------------------------

@@ -5,9 +5,9 @@ A capability the C++/MPI reference cannot offer: the whole forward model
 beta=0 with row-sum lumping) is a pure JAX function of the per-cell squared
 wave speed ``c2_cell``, so ``jax.grad`` differentiates the data misfit
 through the entire time loop — the adjoint-state method for free, compiled
-for TPU. Memory for reverse mode is kept linear-in-steps-but-small via
+by XLA. Memory for reverse mode is kept linear-in-steps-but-small via
 ``jax.checkpoint`` on the scan body (recompute-in-backward), the standard
-remat trade documented in the JAX/TPU playbooks.
+remat trade.
 
 Forward model
 -------------
@@ -162,22 +162,20 @@ class FwiProblem:
         reference-parity form), "grid" (scatter-free slab multiply-adds
         on (ny, nx) coefficient planes), or "stencil" (assembled
         variable-coefficient 9-point stencil: coefficient planes built
-        once per trajectory, 9 multiply-roll-adds per step — the fastest
-        TPU form). All are equally differentiable in c2.
+        once per trajectory, 9 multiply-roll-adds per step). All are
+        equally differentiable in c2.
     adjoint : "remat" (default; jax autodiff through the checkpointed
         scan — stores two fields per step) or "reversal" (hand-written
         adjoint-state method via jax.custom_vjp: the backward pass
         RECONSTRUCTS forward states by running the time-reversible
         leapfrog backwards from the final pair, so memory is O(1) in the
         step count — the production seismic-imaging technique. Requires
-        engine="stencil" or "pallas" and the default zero initial
-        condition. With a sponge the damped strip is not reversible, so
-        the forward pass saves part of the wavefield each step and the
+        engine="stencil" and the default zero initial condition. With a
+        sponge the damped strip is not reversible, so the forward pass
+        saves part of the wavefield each step and the
         reconstruction overwrites it from storage ("boundary saving") —
         far below remat's O(n_vertices * n_steps) memory. See
-        ``boundary_save`` for the two storage flavours; engine="pallas"
-        supports the "ring" flavour at full temporal blocking (damped
-        9-plane multistep kernels with in-kernel ring save/restore).
+        ``boundary_save`` for the two storage flavours.
     boundary_save : what the reversal+sponge forward pass saves:
         "strip" (default — every sigma > 0 vertex, gradients exact
         everywhere) or "ring" (only the sponge's innermost layer — 2
@@ -186,17 +184,6 @@ class FwiProblem:
         O(perimeter * n_steps), gradients exact on
         ``sponge_interior_cell_mask`` i.e. the whole physical region,
         approximate inside the sponge — the classic seismic recipe).
-    pallas_steps_per_call : temporal blocking for the pallas engine, in
-        BOTH directions — up to this many steps fused into one kernel
-        pass: forward leapfrog steps (ops/pallas_varcoef.py::
-        varcoef_leapfrog_multistep_pallas) and backward
-        reconstruction+adjoint steps (varcoef_adjoint_multistep_pallas),
-        cutting per-step HBM traffic by ~k×. Automatically clamped to
-        the largest k whose 8-aligned halo fits the block layout;
-        1 disables blocking entirely.
-    pallas_block_rows : kernel row-block size. Auto-halved when the
-        per-block VMEM estimate of the multistep adjoint would exceed
-        the chip budget (wide grids: 4096² needs 64).
     """
 
     def __init__(self, nel: Tuple[int, int], geometry, dt: float,
@@ -209,37 +196,19 @@ class FwiProblem:
                  engine: str = "scatter",
                  adjoint: str = "remat",
                  boundary_save: str = "strip",
-                 interp_receivers: bool = False,
-                 pallas_block_rows: int = 128,
-                 pallas_steps_per_call: int = 8,
-                 pallas_interpret: bool = False):
-        if engine not in ("scatter", "grid", "stencil", "pallas"):
+                 interp_receivers: bool = False):
+        if engine not in ("scatter", "grid", "stencil"):
             raise ValueError(f"unknown engine {engine!r}")
         if adjoint not in ("remat", "reversal"):
             raise ValueError(f"unknown adjoint {adjoint!r}")
         if boundary_save not in ("strip", "ring"):
             raise ValueError(f"unknown boundary_save {boundary_save!r}")
-        if adjoint == "reversal" and engine not in ("stencil", "pallas"):
+        if adjoint == "reversal" and engine != "stencil":
             raise ValueError("adjoint='reversal' needs engine='stencil' "
-                             "or 'pallas' (the reconstruction runs on the "
-                             "assembled stencil planes)")
-        if (adjoint == "reversal" and engine == "pallas"
-                and sponge_width > 0.0 and boundary_save != "ring"):
-            raise ValueError("engine='pallas' with a sponge requires "
-                             "boundary_save='ring' (the fused path saves "
-                             "only the interface ring; use "
-                             "engine='stencil' for the exact-everywhere "
-                             "'strip' mode)")
-        if engine == "pallas" and adjoint != "reversal":
-            raise ValueError("engine='pallas' requires adjoint='reversal' "
-                             "(the fused kernels have no JAX AD rule, so "
-                             "gradients go through the hand-written "
-                             "time-reversal backward pass)")
+                             "(the reconstruction runs on the assembled "
+                             "stencil planes)")
         self.engine = engine
         self.adjoint = adjoint
-        self._pallas_br = int(pallas_block_rows)
-        self._pallas_k = int(pallas_steps_per_call)
-        self._pallas_interp = bool(pallas_interpret)
         self.dtype = dtype or default_float()
         self.mesh = StructuredTriMesh(tuple(nel), geometry)
         self.space = FeSpace(self.mesh, 1)
@@ -306,8 +275,9 @@ class FwiProblem:
         #       (sponge_interior_cell_mask), approximate in the sponge.
         # Saved values live in rectangular grid blocks so the per-step
         # save/restore is static slices + dynamic_update_slices, NOT a
-        # flat gather/scatter (a 19%-of-grid index gather measured 8x
-        # slower than remat on the chip; slices are ~free).
+        # flat gather/scatter (an index gather over ~19% of the grid per
+        # step costs more than the whole remat adjoint; slices are
+        # ~free).
         self.boundary_save = boundary_save
         self._sigma_np = sigma
         self._sponge_keep = None
@@ -490,7 +460,7 @@ class FwiProblem:
             return self._stiffness_apply_grid(c2_cell, u)
         scale = (self._det_j * self._w_sum) * jnp.asarray(c2_cell, self.dtype)
         ve = u[self._cells].reshape(-1, 2, 3)          # gather, class pairs
-        we = jnp.einsum("kij,ekj->eki", self._g_class, ve)
+        we = jnp.einsum("kij,ekj->eki", self._g_class, ve, precision="highest")
         we = we * scale.reshape(-1, 2, 1)
         return jax.ops.segment_sum(we.reshape(-1), self._cells.reshape(-1),
                                    num_segments=self.n_vertices)
@@ -528,7 +498,7 @@ class FwiProblem:
         stencil — 2 classes x nonzero (i, j) pairs of slab multiply-adds on
         (ny, nx) planes instead of gather/segment_sum. Same algebra as the
         scatter engine (contributions grouped per (class, i, j) instead of
-        per cell), TPU/VPU-friendly, and equally traceable in c2.
+        per cell), gather-free, and equally traceable in c2.
         """
         ny, nx = self.mesh.ny, self.mesh.nx
         s = ((self._det_j * self._w_sum)
@@ -548,428 +518,10 @@ class FwiProblem:
                         g * sk * ug[ojy:ojy + ny, ojx:ojx + nx])
         return acc.reshape(-1)
 
-    # -- fused Pallas engine (engine="pallas") -------------------------------
-
-    @property
-    def _pallas_layout(self):
-        """Static padded-grid layout for the fused kernels: physical
-        extents (rows, cols) = (ny+1, nx+1), Mosaic-aligned padded shape
-        (H, W), the row-block size, and padded receiver index arrays.
-        Cached host-side."""
-        lay = self.__dict__.get("_pallas_layout_cached")
-        if lay is not None:
-            return lay
-        rows, cols = self.mesh.ny + 1, self.mesh.nx + 1
-        br = self._pallas_br
-        while br > 8 and -(-rows // br) < 2:
-            br //= 2
-        W_est = -(-cols // 128) * 128
-        # clamp the block size so the multistep ADJOINT kernel (the
-        # VMEM-heaviest path: 11 halo'd scratch slabs + ~7 slab-sized
-        # shift temporaries + 14 wbar and 8 field in/out blocks) fits
-        # the per-core VMEM budget on wide grids (4096² needs br=64;
-        # measured: br=128 fails to compile at W=4224, br=64 matches
-        # br=128's per-point speed)
-        halo_max = -(-max(1, self._pallas_k) // 8) * 8
-        item = jnp.dtype(self.dtype).itemsize
-        # sponge adds 2 halo'd plane slabs (dden/dnum or p2/pm) + the
-        # ring-cols scratch to the adjoint's VMEM footprint
-        slabs = 18 + (4 if self._sponge_rects is not None else 0)
-        while br > 16 and ((slabs * (br + 2 * halo_max) + 22 * br)
-                           * W_est * item) > 64 * 1024 * 1024:
-            br //= 2
-        # >= 2 blocks, and the (traced-even-when-untaken) middle halo-DMA
-        # branch slices br + 16 rows, so the padded height must cover it
-        n_blocks = max(-(-rows // br), 2, 1 + -(-16 // br))
-        H = n_blocks * br
-        W = -(-cols // 128) * 128
-        lay = {"rows": rows, "cols": cols, "H": H, "W": W, "br": br}
-        # host numpy on purpose: jnp constants materialised during a jit
-        # trace would cache escaped tracers (same caveat as _cell_adjacency)
-        vr = np.asarray(self._rec_tri_verts if self.interp_receivers
-                        else self.receiver_vertices)
-        lay["rec_r"] = np.asarray(vr // cols, np.int32)
-        lay["rec_c"] = np.asarray(vr % cols, np.int32)
-        # temporal blocking: the largest k <= pallas_steps_per_call whose
-        # 8-aligned halo fits both the block and the padded height
-        k = max(1, self._pallas_k)
-        while k > 1:
-            halo = -(-k // 8) * 8
-            if br >= halo and H >= br + 2 * halo:
-                break
-            k -= 1
-        lay["k"] = k
-        # receiver grid rows for the multistep strip output (static)
-        rec_rows = tuple(sorted(set(int(r) for r in lay["rec_r"].ravel())))
-        lay["rec_rows"] = rec_rows
-        slot_of = {r: s for s, r in enumerate(rec_rows)}
-        lay["rec_slot"] = np.asarray(
-            [slot_of[int(r)] for r in lay["rec_r"].ravel()],
-            np.int32).reshape(lay["rec_r"].shape)
-        # static row-grouped injection layout for the multistep adjoint:
-        # ((row, ((col, flat_point_idx), ...)), ...) with flat index p
-        # matching the raveled (rec_r, rec_c) order — the order the
-        # caller flattens the pre-weighted cotangent values in.
-        groups: dict = {}
-        for p, (r, c) in enumerate(zip(lay["rec_r"].ravel(),
-                                       lay["rec_c"].ravel())):
-            groups.setdefault(int(r), []).append((int(c), p))
-        lay["adj_groups"] = tuple(sorted(
-            (r, tuple(pts)) for r, pts in groups.items()))
-        # interface-ring bounding box for the sponge kernels
-        if self._sponge_rects is not None:
-            r0, r1, c0, c1 = self._sponge_rect
-            lay["ring"] = (r0 - 1, r1 + 1, c0 - 1, c1 + 1)
-        else:
-            lay["ring"] = None
-        self.__dict__["_pallas_layout_cached"] = lay
-        return lay
-
-    def _padded_planes(self, c2_cell):
-        """Stacked (7, H, W) coefficient planes in pallas_varcoef.OFFSETS
-        order, zero-padded to the Mosaic-aligned grid. Linear in c2 (the
-        backward pass takes jax.vjp of this to chain the accumulated
-        plane cotangents to dJ/dc2)."""
-        from ..ops.pallas_varcoef import OFFSETS
-        lay = self._pallas_layout
-        planes = self._assemble_stencil_planes(c2_cell)
-        zero = jnp.zeros((lay["rows"], lay["cols"]), self.dtype)
-        stacked = jnp.stack([planes.get(d, zero) for d in OFFSETS])
-        return jnp.zeros((7, lay["H"], lay["W"]), self.dtype).at[
-            :, :lay["rows"], :lay["cols"]].set(stacked)
-
-    def _planes9_forward(self, planes7):
-        """(9, H, W) planes for the damped multistep FORWARD kernel:
-        [0:7] dden-folded stencil planes, [7] p2 = 2*dden,
-        [8] pm = dden*dnum."""
-        dnum_g, dden_g, _ = self._pallas_damp
-        return jnp.concatenate([planes7 * dden_g[None],
-                                (2.0 * dden_g)[None],
-                                (dden_g * dnum_g)[None]])
-
-    def _planes9_adjoint(self, planes7):
-        """(9, H, W) planes for the damped multistep ADJOINT kernel:
-        [0:7] PLAIN stencil planes (K is applied undamped there),
-        [7] dden, [8] dnum."""
-        dnum_g, dden_g, _ = self._pallas_damp
-        return jnp.concatenate([planes7, dden_g[None], dnum_g[None]])
-
-    def _pad_field(self, u_flat):
-        lay = self._pallas_layout
-        g = jnp.asarray(u_flat, self.dtype).reshape(lay["rows"],
-                                                    lay["cols"])
-        return jnp.zeros((lay["H"], lay["W"]), self.dtype).at[
-            :lay["rows"], :lay["cols"]].set(g)
-
-    def _sample_padded(self, u_g):
-        lay = self._pallas_layout
-        if self.interp_receivers:
-            return jnp.sum(u_g[lay["rec_r"], lay["rec_c"]]
-                           * self._rec_tri_w, axis=-1)
-        return u_g[lay["rec_r"], lay["rec_c"]]
-
-    def _inject_padded(self, vec_g, ybar_row):
-        lay = self._pallas_layout
-        if self.interp_receivers:
-            return vec_g.at[lay["rec_r"], lay["rec_c"]].add(
-                self._rec_tri_w * ybar_row[:, None])
-        return vec_g.at[lay["rec_r"], lay["rec_c"]].add(ybar_row)
-
-    def _sample_strip(self, strip):
-        """Receiver traces from a multistep kernel's (k, R, W) strip of
-        receiver grid rows -> (k, n_rec)."""
-        lay = self._pallas_layout
-        vals = strip[:, lay["rec_slot"], lay["rec_c"]]
-        if self.interp_receivers:
-            return jnp.sum(vals * self._rec_tri_w, axis=-1)
-        return vals
-
-    def _ring_save_padded(self, u_g):
-        """Interface-ring values of a padded (H, W) grid as
-        (rows (2, W), cols (H, 2)) — the pallas engine's saved format
-        (matches the kernels' ring_rows/ring_cols outputs)."""
-        rA, rB, cA, cB = self._pallas_layout["ring"]
-        rows = jnp.stack([u_g[rA], u_g[rB]])
-        cols = jnp.stack([u_g[:, cA], u_g[:, cB]], axis=1)
-        return rows, cols
-
-    def _ring_restore_padded(self, u_g, rows, cols):
-        """Restore saved ring values (cols first, then rows — the values
-        coincide at the crossings, same order as the fused kernel)."""
-        rA, rB, cA, cB = self._pallas_layout["ring"]
-        u_g = u_g.at[:, cA].set(cols[:, 0]).at[:, cB].set(cols[:, 1])
-        return u_g.at[rA].set(rows[0]).at[rB].set(rows[1])
-
-    @property
-    def _pallas_damp(self):
-        """Padded ((H, W) dnum, (H, W) dden, (H, W) keep) planes for the
-        sponge on the fused path; None without a sponge. Pad with 1s (the
-        kernels' Dirichlet/pad mask zeroes those nodes anyway)."""
-        if self._sponge_rects is None:
-            return None
-        cached = self.__dict__.get("_pallas_damp_cached")
-        if cached is not None:
-            return cached
-        lay = self._pallas_layout
-
-        def pad_one(v_flat):
-            g = jnp.asarray(v_flat, self.dtype).reshape(lay["rows"],
-                                                        lay["cols"])
-            return jnp.ones((lay["H"], lay["W"]), self.dtype).at[
-                :lay["rows"], :lay["cols"]].set(g)
-
-        cached = (pad_one(self._damp_num), pad_one(self._damp_den),
-                  pad_one(self._sponge_keep))
-        self.__dict__["_pallas_damp_cached"] = cached
-        return cached
-
-    def _propagate_pallas(self, c2_cell, src, wavelet, u0=None,
-                          return_final: bool = False):
-        """Forward leapfrog on the padded grid with the fused
-        variable-coefficient kernel (one HBM pass per step: u, u_prev,
-        7 coefficient planes in; u_next out). Source injection and
-        receiver sampling are O(1) index ops outside the kernel."""
-        from ..ops.pallas_varcoef import varcoef_leapfrog_step_pallas
-        lay = self._pallas_layout
-        planes = self._padded_planes(jnp.asarray(c2_cell, self.dtype))
-        coef = float(self.dt * self.dt) / self._det_j
-        cols = lay["cols"]
-        src_r, src_c = src // cols, src % cols
-        kw = dict(coef=coef, block_rows=lay["br"], true_rows=lay["rows"],
-                  true_cols=cols, interpret=self._pallas_interp)
-
-        u0_g = (jnp.zeros((lay["H"], lay["W"]), self.dtype)
-                if u0 is None else self._pad_field(u0))
-        # Taylor half-start: u1 = mask(u0 - dt²/2 M⁻¹ K u0) + dt²/2 M⁻¹ w0
-        u1 = varcoef_leapfrog_step_pallas(
-            u0_g, u0_g, planes, damp=None,
-            **{**kw, "coef": 0.5 * coef})
-        u1 = u1.at[src_r, src_c].add(0.5 * coef * wavelet[0])
-
-        damp3 = self._pallas_damp
-        damp = None if damp3 is None else (damp3[0], damp3[1])
-        # the source term rides inside the damped update in the XLA
-        # semantics, so it picks up the dden factor at the source point
-        src_dden = (jnp.asarray(1.0, self.dtype) if damp3 is None
-                    else damp3[1][src_r, src_c])
-        save = (damp3 is not None) and return_final
-
-        def body(carry, w_n):
-            u, u_prev = carry
-            un = varcoef_leapfrog_step_pallas(u, u_prev, planes,
-                                              damp=damp, **kw)
-            un = un.at[src_r, src_c].add(coef * w_n * src_dden)
-            out = self._sample_padded(un)
-            if save:
-                out = (out, self._ring_save_padded(un))
-            return (un, u), out
-
-        first = self._sample_padded(u1)
-        w_rest = wavelet[1:]
-        k = lay["k"]
-        if k > 1:
-            from ..ops.pallas_varcoef import (
-                varcoef_leapfrog_multistep_pallas)
-            n_chunks, rem = divmod(w_rest.shape[0], k)
-            srcinfo = jnp.stack([src_r, src_c]).astype(jnp.int32)
-            mkw = dict(coef=coef, n_steps=k, rec_rows=lay["rec_rows"],
-                       block_rows=lay["br"], true_rows=lay["rows"],
-                       true_cols=cols, interpret=self._pallas_interp,
-                       ring=lay["ring"] if save else None)
-            # damped update needs the 9-plane stack; ring outputs only
-            # when the backward pass will reconstruct (save)
-            planes_ms = (self._planes9_forward(planes)
-                         if damp3 is not None else planes)
-
-            def chunk_body(carry, w_k):
-                u, u_prev = carry
-                outs = varcoef_leapfrog_multistep_pallas(
-                    u, u_prev, planes_ms, w_k, srcinfo, **mkw)
-                if save:
-                    un, upn, strip, rr, rc = outs
-                    return (un, upn), (self._sample_strip(strip), rr,
-                                       rc[:, :, :2])
-                un, upn, strip = outs
-                return (un, upn), self._sample_strip(strip)
-
-            (u_c, up_c), chunks = jax.lax.scan(
-                chunk_body, (u1, u0_g),
-                w_rest[:n_chunks * k].reshape(n_chunks, k))
-            (u_last, u_prevlast), tail = jax.lax.scan(
-                body, (u_c, up_c), w_rest[n_chunks * k:])
-            if save:
-                chunks, rows_mid, cols_mid = chunks
-                tail, (rows_tail, cols_tail) = tail
-                rows1, cols1 = self._ring_save_padded(u1)
-                rows_all = jnp.concatenate(
-                    [rows1[None], rows_mid.reshape(-1, 2, lay["W"]),
-                     rows_tail])
-                cols_all = jnp.concatenate(
-                    [cols1[None], cols_mid.reshape(-1, lay["H"], 2),
-                     cols_tail])
-                mid = chunks.reshape(n_chunks * k, -1)
-                traces = jnp.concatenate([first[None], mid, tail], axis=0)
-                return traces, (u_last, u_prevlast, (rows_all, cols_all))
-            mid = chunks.reshape(n_chunks * k, -1)
-            traces = jnp.concatenate([first[None], mid, tail], axis=0)
-        else:
-            (u_last, u_prevlast), rest = jax.lax.scan(body, (u1, u0_g),
-                                                      w_rest)
-            if save:
-                rest, (rows_rest, cols_rest) = rest
-                rows1, cols1 = self._ring_save_padded(u1)
-                rows_all = jnp.concatenate([rows1[None], rows_rest])
-                cols_all = jnp.concatenate([cols1[None], cols_rest])
-                traces = jnp.concatenate([first[None], rest], axis=0)
-                return traces, (u_last, u_prevlast, (rows_all, cols_all))
-            traces = jnp.concatenate([first[None], rest], axis=0)
-        if return_final:
-            return traces, (u_last, u_prevlast)
-        return traces
-
-    def _adjoint_backward_pallas(self, c2_cell, src, wavelet, u_last,
-                                 u_prevlast, ybar, strips=None):
-        """Fused-kernel twin of :meth:`_adjoint_backward`: the whole
-        backward body (state reconstruction, adjoint-field update and the
-        7-plane correlation accumulation) is ONE Pallas pass per step,
-        with the wbar accumulator donated in-place. (u_last, u_prevlast)
-        arrive as padded grids from :meth:`_propagate_pallas`."""
-        from ..ops.pallas_varcoef import varcoef_adjoint_step_pallas
-        lay = self._pallas_layout
-        c2_cell = jnp.asarray(c2_cell, self.dtype)
-        planes, assemble_vjp = jax.vjp(self._padded_planes, c2_cell)
-        coef = float(self.dt * self.dt) / self._det_j
-        cols = lay["cols"]
-        src_r, src_c = src // cols, src % cols
-        kw = dict(coef=coef, block_rows=lay["br"], true_rows=lay["rows"],
-                  true_cols=cols, interpret=self._pallas_interp)
-
-        lam_n = self._inject_padded(
-            jnp.zeros((lay["H"], lay["W"]), self.dtype), ybar[-1])
-        carry0 = (u_last, u_prevlast, lam_n,
-                  jnp.zeros((lay["H"], lay["W"]), self.dtype),
-                  jnp.zeros_like(planes))
-        ybar_part, w_part = ybar[:-1], wavelet[1:]
-        damp3 = self._pallas_damp
-        has_sponge = strips is not None and damp3 is not None
-        if has_sponge:
-            dnum_g, dden_g, keep_g = damp3
-
-        def body(carry, x):
-            if has_sponge:
-                ybar_k, w_k, (row_km1, col_km1) = x
-            else:
-                ybar_k, w_k = x
-            u_next, u_cur, lam_next, lam_partial, wbar = carry
-            if has_sponge:
-                # exact damped-leapfrog transpose: dden folds into the
-                # lambda cotangent before the kernel's interior mask,
-                # dnum rides on the u_prev-cotangent leg after it
-                lam_next = dden_g * lam_next
-            wav_bar_k = coef * lam_next[src_r, src_c]   # mu[src], interior
-            u_prev, lam_cur, lam_partial_new, wbar = \
-                varcoef_adjoint_step_pallas(u_next, u_cur, lam_next,
-                                            lam_partial, planes, wbar,
-                                            **kw)
-            if has_sponge:
-                lam_partial_new = dnum_g * lam_partial_new
-                # ring boundary saving: zero the deep sponge, restore the
-                # interface ring from the forward pass's storage
-                u_prev = self._ring_restore_padded(u_prev * keep_g,
-                                                   row_km1, col_km1)
-            u_prev = u_prev.at[src_r, src_c].add(coef * w_k)
-            lam_cur = self._inject_padded(lam_cur, ybar_k)
-            return ((u_cur, u_prev, lam_cur, lam_partial_new, wbar),
-                    wav_bar_k)
-
-        if has_sponge:
-            # xs row i = saved ring of u_i (row 0: the zero start)
-            rows_all, cols_all = strips
-            n = self.n_steps
-            rows_xs = jnp.concatenate(
-                [jnp.zeros((1,) + rows_all.shape[1:], rows_all.dtype),
-                 rows_all[:-2]])[:n - 1]
-            cols_xs = jnp.concatenate(
-                [jnp.zeros((1,) + cols_all.shape[1:], cols_all.dtype),
-                 cols_all[:-2]])[:n - 1]
-
-        k = lay["k"]
-        m = ybar_part.shape[0]
-        n_chunks, rem = divmod(m, k) if k > 1 else (0, m)
-        if n_chunks > 0:
-            # temporal blocking: elements [rem, m) in n_chunks fused
-            # passes (reverse chunk order; rows pre-reversed so the
-            # kernel's inner loop runs time-descending)
-            from ..ops.pallas_varcoef import varcoef_adjoint_multistep_pallas
-            srcinfo = jnp.stack([src_r, src_c]).astype(jnp.int32)
-            mkw = dict(coef=coef, n_steps=k, rec_groups=lay["adj_groups"],
-                       block_rows=lay["br"], true_rows=lay["rows"],
-                       true_cols=cols, interpret=self._pallas_interp,
-                       ring=lay["ring"] if has_sponge else None)
-            planes_ms = (self._planes9_adjoint(planes) if has_sponge
-                         else planes)
-            yb_t = ybar_part[rem:].reshape(n_chunks, k, -1)
-            w_t = w_part[rem:].reshape(n_chunks, k)
-            if has_sponge:
-                rows_t = rows_xs[rem:].reshape(n_chunks, k, 2, -1)
-                cols_t = cols_xs[rem:].reshape(n_chunks, k, -1, 2)
-
-            def to_inj(yb_k):
-                """(k, n_rec) cotangents -> (k, P) pre-weighted point
-                values in the raveled (rec_r, rec_c) order."""
-                if self.interp_receivers:
-                    return (yb_k[:, :, None]
-                            * self._rec_tri_w[None]).reshape(k, -1)
-                return yb_k
-
-            def chunk_body(carry, x):
-                if has_sponge:
-                    yb_k, w_k, rows_k, cols_k = x
-                    # kernel-order (time-descending) saves, cols padded
-                    # to the 128-lane layout the halo DMA expects
-                    ring_args = (
-                        rows_k[::-1],
-                        jnp.zeros((k, lay["H"], 128), cols_k.dtype).at[
-                            :, :, :2].set(cols_k[::-1]))
-                else:
-                    yb_k, w_k = x
-                    ring_args = (None, None)
-                u_next, u_cur, lam, lpart, wbar = carry
-                un, uc, lam2, lp2, wbar2, wavbar = \
-                    varcoef_adjoint_multistep_pallas(
-                        u_next, u_cur, lam, lpart, planes_ms, wbar,
-                        w_k[::-1], to_inj(yb_k)[::-1], srcinfo,
-                        *ring_args, **mkw)
-                return ((un, uc, lam2, lp2, wbar2), wavbar[0, ::-1])
-
-            chunk_xs = ((yb_t, w_t, rows_t, cols_t) if has_sponge
-                        else (yb_t, w_t))
-            carry_mid, wav_mid = jax.lax.scan(chunk_body, carry0,
-                                              chunk_xs, reverse=True)
-            head_xs = (ybar_part[:rem], w_part[:rem])
-            if has_sponge:
-                head_xs = head_xs + ((rows_xs[:rem], cols_xs[:rem]),)
-            (_, _, lam_1, _, wbar), wav_head = jax.lax.scan(
-                body, carry_mid, head_xs, reverse=True)
-            wav_bar_rest = jnp.concatenate(
-                [wav_head, wav_mid.reshape(n_chunks * k)])
-        else:
-            xs = (ybar_part, w_part)
-            if has_sponge:
-                xs = xs + ((rows_xs, cols_xs),)
-            (_, _, lam_1, _, wbar), wav_bar_rest = jax.lax.scan(
-                body, carry0, xs, reverse=True)
-        wav_bar_0 = 0.5 * coef * lam_1[src_r, src_c]
-        wavelet_bar = jnp.concatenate([wav_bar_0[None], wav_bar_rest])
-        return assemble_vjp(wbar)[0], wavelet_bar
-
     def _propagate(self, c2_cell, src, wavelet,
                    u0: Optional[jax.Array] = None,
                    return_final: bool = False):
         """Core leapfrog scan, traceable in (c2_cell, src, wavelet, u0)."""
-        if self.engine == "pallas":
-            return self._propagate_pallas(c2_cell, src, wavelet, u0,
-                                          return_final)
         c2_cell = jnp.asarray(c2_cell, self.dtype)
         dt2 = jnp.asarray(self.dt * self.dt, self.dtype)
 
@@ -1134,10 +686,7 @@ class FwiProblem:
 
         def bwd(res, ybar):
             c2, src, wavelet, u_last, u_prevlast, *rest = res
-            backward = (self._adjoint_backward_pallas
-                        if self.engine == "pallas"
-                        else self._adjoint_backward)
-            c2_bar, wav_bar = backward(
+            c2_bar, wav_bar = self._adjoint_backward(
                 c2, src, wavelet, u_last, u_prevlast, ybar, *rest)
             src_bar = np.zeros(np.shape(src), jax.dtypes.float0)  # int arg
             return c2_bar, src_bar, wav_bar
@@ -1197,14 +746,6 @@ class FwiProblem:
         else:
             def one(s, w):
                 return self._propagate(c2_cell, s, w)
-        if self.engine == "pallas" and not self._pallas_interp:
-            # compiled vmap of pallas_call cannot lower its SMEM operands
-            # (the batched (S, 2) srcinfo block violates Mosaic tiling),
-            # so shots run as a sequential lax.map — no loss on one chip,
-            # where each kernel pass already saturates the core; for
-            # multi-device shot parallelism wrap in shard_map over the
-            # shot axis
-            return jax.lax.map(lambda sw: one(*sw), (sources, wavelets))
         return jax.vmap(one)(sources, wavelets)
 
     def misfit_shots(self, c2_cell, sources, observed, wavelets=None,
@@ -1236,16 +777,11 @@ class FwiProblem:
         ``wavelets``: optional (S, n_steps) per-source time series
         (default: this problem's wavelet for every source).
 
-        Differentiable in (c2_cell, codes, wavelets) on every engine
-        except "pallas" (whose fused kernels carry a single-source SMEM
-        descriptor); adjoint="reversal" runs the same O(1)-memory
+        Differentiable in (c2_cell, codes, wavelets) on every engine;
+        adjoint="reversal" runs the same O(1)-memory
         time-reversed backward pass — the multi-source injection and its
         wavelet cotangents fall out of the same ``at[src].add`` algebra.
         """
-        if self.engine == "pallas":
-            raise ValueError("simulate_supershot needs engine in "
-                             "('scatter', 'grid', 'stencil'); the fused "
-                             "pallas kernels inject a single source")
         sources = jnp.asarray(sources, jnp.int32)
         codes = jnp.asarray(codes, self.dtype)
         if wavelets is None:
@@ -1269,7 +805,8 @@ class FwiProblem:
         weighted trace sum)."""
         codes = jnp.asarray(codes, self.dtype)
         d_enc = jnp.einsum("s,snr->nr", codes,
-                           jnp.asarray(observed, self.dtype))
+                           jnp.asarray(observed, self.dtype),
+                           precision="highest")
         r = self.simulate_supershot(c2_cell, sources, codes, wavelets) - d_enc
         return 0.5 * jnp.sum(r * r)
 
@@ -1345,10 +882,6 @@ class FwiProblem:
         sweep (jax.jvp) through the leapfrog scan. Forward mode cannot
         traverse the reversal custom_vjp, so this path always runs the
         plain scan (engines scatter/grid/stencil)."""
-        if self.engine == "pallas":
-            raise ValueError("born needs engine in ('scatter', 'grid', "
-                             "'stencil'); the fused pallas kernels have "
-                             "no JVP rule")
         c2 = jnp.asarray(c2_cell, self.dtype)
         dm = jnp.asarray(dc2_cell, self.dtype)
         if sources is None:
@@ -1407,11 +940,6 @@ class FwiProblem:
         c2 = jnp.asarray(c2_cell, self.dtype)
         d = jnp.asarray(observed, self.dtype)
         f = self._data_map(sources, wavelets)
-
-        if self.engine == "pallas":
-            raise ValueError("lsrtm needs engine in ('scatter', 'grid', "
-                             "'stencil'); Born modeling has no pallas "
-                             "JVP rule")
 
         @jax.jit
         def L(m):
@@ -1474,10 +1002,6 @@ class FwiProblem:
 
         Cost per outer iteration ≈ (1 + 2·n_cg) propagation pairs.
         Returns FwiResult with the per-outer-iteration misfits."""
-        if self.engine == "pallas":
-            raise ValueError("invert_gauss_newton needs engine in "
-                             "('scatter', 'grid', 'stencil'); Born "
-                             "modeling has no pallas JVP rule")
         d = jnp.asarray(observed, self.dtype)
         f = self._data_map(sources, wavelets)
 

@@ -21,7 +21,7 @@ __all__ = ["get_lib", "available", "p1_cells", "p2_cell_dofs",
            "write_vtu_native", "write_mesh_vtk_native"]
 
 _NATIVE_DIR = Path(__file__).resolve().parent.parent.parent / "native"
-_LIB_PATH = _NATIVE_DIR / "libtpuwave_native.so"
+_LIB_PATH = _NATIVE_DIR / "libwave_native.so"
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 

@@ -1,12 +1,12 @@
 """Batched finite-element assembly.
 
-TPU-native replacement for the reference's FEValues cell loop
+Array-native replacement for the reference's FEValues cell loop
 (src/WaveTheta.cpp:56-117 / src/WaveNewmark.cpp:56-114): instead of
 iterating cells and scatter-adding 3x3/6x6 blocks into a Trilinos sparse
 matrix, element matrices are computed for ALL cells at once as einsum
 contractions over tabulated shape data, and the global operator is kept
-MATRIX-FREE (gather -> batched small matvec -> segment_sum), which is the
-idiomatic TPU representation — no sparse row structures.
+MATRIX-FREE (gather -> batched small matvec -> segment_sum), the
+idiomatic accelerator representation — no sparse row structures.
 
 Structure exploited: the structured mesh has exactly two congruent element
 classes (lower/upper triangle) with constant Jacobians, so

@@ -14,7 +14,7 @@ reproduces deal.II's exact semantics:
 so the constrained operator stays SPD and CG trajectories match.
 
 Everything here is jit-traceable; `segment_sum` gives deterministic
-scatter-adds (the TPU analogue of Trilinos ``compress(add)``).
+scatter-adds (the array analogue of Trilinos ``compress(add)``).
 """
 
 from __future__ import annotations
@@ -56,10 +56,11 @@ class MatrixFreeOperator:
         cd = self.cell_dofs
         ve = v[cd]  # (n_cells, nloc) gather
         if self.a_full is not None:
-            we = jnp.einsum("eij,ej->ei", self.a_full, ve)
+            we = jnp.einsum("eij,ej->ei", self.a_full, ve, precision="highest")
         else:
             ve2 = ve.reshape(-1, 2, self.n_local)
-            we2 = jnp.einsum("kij,ekj->eki", self.a_class, ve2)
+            we2 = jnp.einsum("kij,ekj->eki", self.a_class, ve2,
+                             precision="highest")
             if self.scale is not None:
                 we2 = we2 * self.scale.reshape(-1, 2, 1)
             we = we2.reshape(-1, self.n_local)

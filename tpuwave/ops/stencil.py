@@ -4,9 +4,8 @@ On the structured triangulated rectangle, P1 DoFs ARE the vertex grid
 (ny+1, nx+1), and for constant wave speed both M and K reduce to CONSTANT
 7-point stencils (the diagonal split couples (+1,+1) and (-1,-1) but not
 the anti-diagonal). Applying K then costs ~7 shifted adds over a 2D array:
-no gathers, no connectivity traffic, pure VPU work at HBM-streaming speed —
-the TPU speed-of-light representation of this operator (vs. the reference's
-CSR SpMV, src/WaveTheta.cpp:127-135).
+no gathers, no connectivity traffic, elementwise work at memory-streaming
+speed (vs. the reference's CSR SpMV, src/WaveTheta.cpp:127-135).
 
 Boundary-row caveat: the shifted adds wrap cyclically (jnp.roll semantics),
 so ONLY interior rows of the result are exact. Every solver use masks
@@ -15,8 +14,8 @@ free; diagnostics that need exact boundary rows (energy) use the
 element-operator path.
 
 Sharding: under `jax.sharding`/GSPMD the rolls lower to collective-permute
-halo exchanges over ICI automatically — this module contains no explicit
-communication code.
+halo exchanges between devices automatically — this module contains no
+explicit communication code.
 """
 
 from __future__ import annotations

@@ -12,9 +12,9 @@ and (for constant wave speed) both M and K become CONSTANT block-stencils
 between planes: y_p[n] = sum_{q, off} C[p,q,off] * x_q[n + off] with
 offsets in {-1,0,1}^2. Application is pure shifted adds over four 2D
 canvases — the P2 analogue of ops/stencil.py, replacing the
-gather/segment_sum flat path whose sort-based scatter lowering OOMs the
-chip beyond ~10M DoF (measured: 3072^2 P2 needs 19 GB via the flat path;
-this representation streams at HBM bandwidth with ~2x state footprint).
+gather/segment_sum flat path, whose scatter lowering needs O(n_cells)
+index and sort buffers (this representation streams at memory bandwidth
+with ~2x state footprint).
 
 Plane embedding into a common (ny+3, nx+3) zero-padded canvas makes the
 cross-plane shifts uniform; roll wraparound lands only in the canvas halo
@@ -77,8 +77,7 @@ def planes_to_flat(planes: Dict[str, jax.Array]) -> jax.Array:
 def canvas_shape(nx: int, ny: int, row_multiple: int = 1,
                  col_multiple: int = 1) -> Tuple[int, int]:
     """Common zero-padded canvas shape holding any plane at offset (1, 1),
-    rows/cols padded up to multiples (for even sharding / Mosaic lane
-    alignment)."""
+    rows/cols padded up to multiples (for even sharding)."""
     rows = -(-(ny + 3) // row_multiple) * row_multiple
     cols = -(-(nx + 3) // col_multiple) * col_multiple
     return (rows, cols)
@@ -336,7 +335,7 @@ class P2VarcoefStencil:
         (P2PlaneStencil.apply_canvases for the varcoef operator). Caller
         guarantees zeros outside each plane's support; every slice window
         stays inside the canvas for any Hc >= ny + 3, Wc >= nx + 3, so
-        row/col padding (Mosaic alignment, device-mesh divisibility) is
+        row/col padding (device-mesh divisibility) is
         transparent."""
         cs = (xc.shape[1], xc.shape[2])
         out = self._slice_add_apply([xc[i] for i in range(4)], cs)

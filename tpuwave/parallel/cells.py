@@ -1,9 +1,9 @@
 """Cell-parallel sharding for unstructured (imported-mesh) operators.
 
 The structured fast paths shard the vertex GRID by rows (parallel/
-sharding.py) and let GSPMD turn stencil shifts into ICI collective
+sharding.py) and let GSPMD turn stencil shifts into collective
 permutes. An imported unstructured mesh has no grid, but the matrix-free
-apply is a sum of independent per-cell contributions — the natural TPU
+apply is a sum of independent per-cell contributions — the natural
 decomposition is to shard the CELLS (and their element matrices) over the
 device mesh and keep the DoF vector replicated:
 
@@ -83,7 +83,8 @@ class ShardedCellOperator:
                  in_specs=(P(axis, None), P(axis, None, None), P()),
                  out_specs=P())
         def _apply(cd_blk, af_blk, v):
-            we = jnp.einsum("eij,ej->ei", af_blk, v[cd_blk])
+            we = jnp.einsum("eij,ej->ei", af_blk, v[cd_blk],
+                            precision="highest")
             y = jax.ops.segment_sum(we.reshape(-1), cd_blk.reshape(-1),
                                     num_segments=n)
             return jax.lax.psum(y, axis)

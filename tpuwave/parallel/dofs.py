@@ -3,7 +3,7 @@
 :mod:`tpuwave.parallel.cells` shards the CELLS and replicates the DoF
 vector — zero halo bookkeeping, but O(n_dofs) memory per chip, which
 caps the mesh size at one chip's HBM. This module is the scaling path:
-both the cells AND the DoF vectors are partitioned, the TPU counterpart
+both the cells AND the DoF vectors are partitioned, the counterpart
 of the reference's ``partition_triangulation`` + owned/ghosted
 ``TrilinosWrappers::MPI::Vector`` (reference WaveEquationBase.cpp:65-69;
 SURVEY.md §2.1).
@@ -26,7 +26,7 @@ Strategy (host-side numpy setup, device-side ``shard_map``):
    element kernel as everywhere else), then ``ppermute`` the ghost-slot
    CONTRIBUTIONS back to their owners and add — the matrix-free
    equivalent of deal.II's ``compress(VectorOperation::add)``, with
-   nearest-neighbor ICI traffic only (no psum over the full vector).
+   nearest-neighbor device traffic only (no psum over the full vector).
 
 Vectors live in the banded padded layout (length ``n_bands * max_own``,
 sharded ``P('y')``); ``DofPlan.to_banded`` / ``from_banded`` convert at
@@ -269,7 +269,8 @@ class ShardedDofOperator:
         @partial(jax.shard_map, mesh=mesh, in_specs=specs, out_specs=P(ax))
         def _apply(cd_blk, af_blk, snd_nxt, snd_prv, v_own):
             v_loc = _gather_ghosts(snd_nxt, snd_prv, v_own)
-            we = jnp.einsum("eij,ej->ei", af_blk, v_loc[cd_blk])
+            we = jnp.einsum("eij,ej->ei", af_blk, v_loc[cd_blk],
+                            precision="highest")
             return _scatter_back(cd_blk, we, snd_nxt, snd_prv)
 
         @partial(jax.shard_map, mesh=mesh, in_specs=specs[:2] + specs[2:4],

@@ -6,7 +6,7 @@ than one cell (very wide-and-short meshes at high device counts) violate
 its neighbor-only assumption. This module is the 2-D generalisation: cells
 and DoFs are partitioned into a (py, px) grid of blocks cut at GLOBAL
 centroid quantiles, and the ghost exchange runs over the 8-neighbor block
-graph — one ``ppermute`` per occupied direction, nearest-neighbor ICI
+graph — one ``ppermute`` per occupied direction, nearest-neighbor device
 traffic only, exactly like the 1-D engine but with the neighbor set
 {±1, ±px, ±px±1} instead of {±1}.
 
@@ -289,7 +289,8 @@ class ShardedDofOperator2D:
         def _apply(cd_blk, af_blk, send_blk, v_own):
             send_blk = send_blk.reshape(-1)
             v_loc = _gather_ghosts(send_blk, v_own)
-            we = jnp.einsum("eij,ej->ei", af_blk, v_loc[cd_blk])
+            we = jnp.einsum("eij,ej->ei", af_blk, v_loc[cd_blk],
+                            precision="highest")
             return _scatter_back(cd_blk, we, send_blk)
 
         def _assemble(reduce_fn):

@@ -2,10 +2,10 @@
 
 The GSPMD path (parallel/sharding.py + ops/stencil.py) lets the XLA
 partitioner infer the nearest-neighbour communication. This module is the
-explicitly-scheduled equivalent — the direct TPU analogue of the
+explicitly-scheduled equivalent — the direct analogue of the
 reference's ghost-row exchange (Trilinos import/export under
 ``compress()``/ghosted vectors, reference WaveEquationBase.cpp:182-185):
-each row-shard ppermutes its first/last row to its neighbours over ICI,
+each row-shard ppermutes its first/last row to its neighbours,
 pads the local block, and applies the stencil locally. Useful as a
 control for validating the GSPMD schedule and as the template for
 hand-tuned variants (e.g. overlapping the exchange with interior compute).
@@ -90,26 +90,14 @@ def make_halo_leapfrog_step(mesh: Mesh, solver: FastWaveSolver):
 
 
 def make_multistep_halo_leapfrog(mesh: Mesh, solver: FastWaveSolver,
-                                 k_steps: int = 4, *, engine: str = "xla",
-                                 block_rows: int = 8,
-                                 interpret: bool = False):
+                                 k_steps: int = 4):
     """Temporally-blocked halo exchange: trade one k-row exchange for k
     local steps.
 
-    At pod scale the per-step cost of the 1-row exchange is ICI LATENCY,
-    not bandwidth; exchanging k halo rows once and stepping k times locally
-    (validity shrinking one row per step, exactly consumed by the k-row
-    halo) amortises the latency k-fold — the communication-avoiding
-    counterpart of ops/pallas_kernels.leapfrog_multistep_pallas.
-
-    ``engine="pallas"`` composes the two: after the k-row ppermute
-    exchange, each shard advances its local halo-padded block through
-    the FUSED multistep kernel (leapfrog_multistep_pallas with a traced
-    global row offset so the Dirichlet mask pins only the true domain
-    walls) — the production multi-chip configuration: fused-kernel HBM
-    traffic per shard, one ICI exchange per k steps. Requires
-    (rows/shard + 2k) divisible by ``block_rows`` into >= 2 blocks and
-    block_rows >= the 8-aligned halo of k.
+    Across many devices the per-step cost of the 1-row exchange is
+    interconnect LATENCY, not bandwidth; exchanging k halo rows once and
+    stepping k times locally (validity shrinking one row per step, exactly
+    consumed by the k-row halo) amortises the latency k-fold.
 
     Returns (advance_fn, sharding): advance_fn advances a LeapfrogState by
     ``k_steps`` steps.
@@ -121,8 +109,6 @@ def make_multistep_halo_leapfrog(mesh: Mesh, solver: FastWaveSolver,
     local_rows = h // n_shards
     if k_steps >= local_rows:
         raise ValueError("k_steps must be smaller than the rows per shard")
-    if engine not in ("xla", "pallas"):
-        raise ValueError(f"unknown engine {engine!r}")
     stencil = solver.stiff.stencil
     coef = solver.dt * solver.dt / solver.mesh.det_j
     sharding = NamedSharding(mesh, P("y", None))
@@ -130,11 +116,6 @@ def make_multistep_halo_leapfrog(mesh: Mesh, solver: FastWaveSolver,
 
     fwd = [(i, i + 1) for i in range(n_shards - 1)]
     bwd = [(i + 1, i) for i in range(n_shards - 1)]
-
-    if engine == "pallas":
-        return _make_multistep_halo_pallas(
-            mesh, h, w, local_rows, k, stencil, coef, sharding,
-            fwd, bwd, block_rows, interpret, solver.dtype)
 
     def local_advance(u, up):
         idx = jax.lax.axis_index("y")
@@ -181,54 +162,3 @@ def make_multistep_halo_leapfrog(mesh: Mesh, solver: FastWaveSolver,
 
     return advance, sharding
 
-
-def _make_multistep_halo_pallas(mesh, h, w, local_rows, k, stencil, coef,
-                                sharding, fwd, bwd, block_rows, interpret,
-                                dtype):
-    """engine="pallas" body of :func:`make_multistep_halo_leapfrog`."""
-    from tpuwave.ops.pallas_kernels import leapfrog_multistep_pallas
-
-    h_loc = local_rows + 2 * k
-    halo8 = -(-k // 8) * 8
-    if h_loc % block_rows != 0 or h_loc // block_rows < 2:
-        raise ValueError(
-            f"rows/shard + 2k = {h_loc} must split into >= 2 blocks of "
-            f"block_rows={block_rows}")
-    if block_rows < halo8 or h_loc < block_rows + 2 * halo8:
-        raise ValueError(
-            f"block_rows={block_rows} too small for the {halo8}-row halo "
-            f"of k={k} (needs block_rows >= {halo8} and rows/shard + 2k "
-            f">= {block_rows + 2 * halo8})")
-    wp = -(-w // 128) * 128
-
-    def local_advance(u, up):
-        idx = jax.lax.axis_index("y")
-
-        def pad(x):
-            above = jax.lax.ppermute(x[-k:, :], "y", fwd)
-            below = jax.lax.ppermute(x[:k, :], "y", bwd)
-            return jnp.concatenate([above, x, below], axis=0)
-
-        row0 = idx * local_rows - k   # global row of the padded block's top
-        un, upn = leapfrog_multistep_pallas(
-            pad(u), pad(up), row0, stencil=stencil, coef=coef, n_steps=k,
-            block_rows=block_rows, true_rows=h, true_cols=w,
-            interpret=interpret)
-        return (un[k:k + local_rows, :].astype(dtype),
-                upn[k:k + local_rows, :].astype(dtype))
-
-    # check_vma=False: pallas_call's out_shape carries no varying-mesh-axes
-    # annotation, so shard_map's vma checker cannot type it
-    shmapped = jax.shard_map(local_advance, mesh=mesh,
-                             in_specs=(P("y", None), P("y", None)),
-                             out_specs=(P("y", None), P("y", None)),
-                             check_vma=False)
-
-    @jax.jit
-    def advance(state: LeapfrogState) -> LeapfrogState:
-        u = jnp.pad(state.u, ((0, 0), (0, wp - w)))
-        up = jnp.pad(state.u_prev, ((0, 0), (0, wp - w)))
-        un, upn = shmapped(u, up)
-        return LeapfrogState(u=un[:, :w], u_prev=upn[:, :w])
-
-    return advance, sharding

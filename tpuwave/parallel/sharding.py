@@ -2,10 +2,10 @@
 
 The reference's ONLY parallelism is MPI domain decomposition of the mesh
 (reference WaveEquationBase.cpp:65-69; SURVEY.md section 2.2). The
-TPU-native equivalent: shard the (ny+1, nx+1) vertex grid by ROWS over a 1D
+equivalent here: shard the (ny+1, nx+1) vertex grid by ROWS over a 1D
 `jax.sharding.Mesh`. Every operator in the hot path is a 7-point stencil,
 so GSPMD lowers the row shifts to nearest-neighbour collective-permutes
-over ICI (each shard talks to <= 2 neighbours, the analogue of the
+between devices (each shard talks to <= 2 neighbours, the analogue of the
 reference's ghost-row exchange) and CG dot products to psum — no explicit
 communication code.
 
@@ -70,14 +70,15 @@ def device_mesh(n_devices: Optional[int] = None,
 
 
 def dcn_device_mesh() -> Mesh:
-    """DCN-aware 2D mesh for multi-host runs: grid ROWS over hosts
-    (slow DCN, one halo-row exchange per host boundary) x grid COLUMNS
-    over each host's local chips (fast ICI).
+    """Host-aware 2D mesh for multi-host runs: grid ROWS over hosts
+    (slow inter-host network, one halo-row exchange per host boundary) x
+    grid COLUMNS over each host's local devices (fast intra-host links).
 
-    Every stencil halo along the column split rides ICI; only the thin
-    row boundary between adjacent hosts crosses DCN — the layout that
-    minimises DCN traffic for the row-major structured grid (SURVEY.md
-    section 5, distributed communication backend). Single-process
+    Every stencil halo along the column split stays inside a host; only
+    the thin row boundary between adjacent hosts crosses the network —
+    the layout that minimises inter-host traffic for the row-major
+    structured grid (SURVEY.md section 5, distributed communication
+    backend). Single-process
     environments get a (1, n_local) mesh, so code written against this
     helper also runs unchanged on one host.
     """

@@ -12,7 +12,7 @@ to ``psum`` when the operand arrays are sharded over a device mesh.
 
 Preconditioning: Jacobi (inverse assembled diagonal). The reference uses ML
 AMG for the time-step systems and SSOR for the one-time a0 mass solve;
-AMG is not TPU-idiomatic (irregular coarsening), and for the
+AMG's irregular coarsening does not map onto dense arrays, and for the
 mass-dominated, well-conditioned wave-equation systems Jacobi-CG converges
 robustly — parity is solution accuracy (the tolerance is relative), not
 iteration counts (SURVEY.md section 2.1).
@@ -44,8 +44,8 @@ def pcg(apply_a: Callable, b, x0, *, precond_inv_diag=None,
     callable SPD preconditioner (e.g. solve/chebyshev.py), or None.
 
     ``r0``/``norm0_sq``: optional precomputed initial residual
-    ``b - A x0`` and its squared norm (e.g. from a fused solve-setup
-    kernel, models/fast.py::run_implicit_mg_pallas); skip the extra
+    ``b - A x0`` and its squared norm (e.g. the displacement-form
+    setup, models/fast.py::run_implicit_mg_2term); skip the extra
     operator application / full-plane reduction here.
     """
     dtype = b.dtype

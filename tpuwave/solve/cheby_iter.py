@@ -2,21 +2,21 @@
 
 The reference solves every implicit system with AMG-CG (WaveTheta.cpp:
 288-293, WaveNewmark.cpp:256-261). CG's two dot products per iteration
-are global synchronisation points: on TPU they force one HBM round-trip
+are global synchronisation points: they force one memory round-trip
 per operator apply and (sharded) one psum latency per iteration, so CG
 iterations cannot be fused.
 
 For the wave-equation systems `M + c*K` (mass-dominated, condition number
 a small constant independent of h at wave-stable dt), Chebyshev iteration
-is the TPU-idiomatic solver:
+is the reduction-free alternative:
 
   * the iteration coefficients are DATA-INDEPENDENT scalars computable on
     the host from eigenvalue bounds -> no dot products, no global
     reductions, no dependency stalls;
-  * k iterations therefore fuse into ONE Pallas pass with a k-row halo
-    (exactly like the explicit temporal-blocking kernel,
-    ops/pallas_kernels.py) -> HBM traffic ~ 4/k arrays per iteration
-    instead of CG's ~10;
+  * k iterations therefore need no global reduction between them, so a
+    block of k iterations can in principle run as one temporally blocked
+    pass with a k-row halo (memory traffic ~ 4/k arrays per iteration
+    instead of CG's ~10);
   * the eigenvalue bounds are ANALYTIC: the fast-path operators are
     constant 9-point stencils, whose Dirichlet matrix is a principal
     submatrix of the circulant on the torus, so its spectrum lies inside
@@ -29,8 +29,8 @@ The solve still honours the reference's ReductionControl contract
 ``lax.while_loop``. Restarting the coefficient schedule each block costs
 a factor <= 2 in residual per block vs the un-restarted sequence — at the
 per-block contraction rates here (T_k(sigma) >> 1) that is a fraction of
-one extra iteration — and makes every block identical, which is what lets
-the Pallas kernel bake the schedule in as constants.
+one extra iteration — and makes every block identical, so the schedule
+is a set of compile-time constants.
 """
 
 from __future__ import annotations
@@ -128,7 +128,7 @@ def block_contraction(lam_min: float, lam_max: float, degree: int) -> float:
 
 def chebyshev_block(apply_a: Callable, x, r, theta: float,
                     coeffs) -> Tuple[jax.Array, jax.Array]:
-    """One restarted Chebyshev block (XLA reference for the Pallas kernel)."""
+    """One restarted Chebyshev block."""
     d = r * (1.0 / theta)
     x = x + d
     r = r - apply_a(d)

@@ -1,7 +1,7 @@
-"""Chebyshev preconditioning — the TPU-idiomatic AMG stand-in.
+"""Chebyshev preconditioning — the array-friendly AMG stand-in.
 
 The reference wraps CG in ML-AMG (WaveTheta.cpp:276-286). AMG's irregular
-coarse grids are hostile to TPUs; for the theta u-system
+coarse grids do not map onto dense arrays; for the theta u-system
 (M + (theta dt)^2 K), which becomes stiffness-dominated at large
 theta*dt/h, a fixed-degree Chebyshev polynomial in the Jacobi-preconditioned
 operator captures most of AMG's smoothing benefit while staying a pure
